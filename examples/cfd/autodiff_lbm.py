@@ -5,8 +5,8 @@ checkpointed adjoints over OOC tiles).
 Here the whole rollout is differentiable by construction: optimize the
 initial velocity field so the flow after N steps matches a target vortex,
 using jax.grad + optax, with jax.checkpoint rematerializing the rollout to
-bound memory (the TPU-native analogue of the reference's
-checkpoint_frequency re-simulation).
+bound memory (the analogue of the reference's checkpoint_frequency
+re-simulation).
 """
 
 import sys as _sys, pathlib as _pl

@@ -1,15 +1,11 @@
-"""Multi-chip sharded 3D channel (BASELINE config #5).
+"""Multi-GPU sharded 3D channel (BASELINE config #5).
 
-A periodic force-driven channel sharded over the device mesh; each window
-dispatch runs ``--steps`` fused Pallas steps per shard with ring-ppermute
-halo exchanges over ICI (``parallel/pallas_distribute.py``), overlapping
-the exchange with interior-tile compute.  With 16-bit storage the window
-runs the temporally-blocked 2-step kernel.  ``--tier jnp`` falls back to
-the shard_map-wrapped jnp stepper (the reference's distribute() analogue).
-
-On this dev box it runs on whatever devices exist (one TPU chip, or 8
-virtual CPU devices under JAX_PLATFORMS=cpu); on a pod slice the same
-script weak-scales the domain with the device count.
+A periodic force-driven channel sharded over the device mesh along x; each
+window dispatch runs ``--steps`` jnp-tier steps that GSPMD partitions, with
+the x-rolls of the pull stream lowered to collective-permutes between
+cards.  The domain weak-scales with the device count (8 virtual CPU
+devices under JAX_PLATFORMS=cpu and
+XLA_FLAGS=--xla_force_host_platform_device_count=8, or the GPUs of a host).
 """
 
 import sys as _sys, pathlib as _pl
@@ -27,26 +23,19 @@ from xlb_tpu.velocity_set import D3Q19
 from xlb_tpu.grid import grid_factory
 from xlb_tpu.models import IncompressibleNavierStokesStepper
 from xlb_tpu.boundary import HalfwayBounceBackBC
-from xlb_tpu.parallel import distribute
-from xlb_tpu.parallel.pallas_distribute import build_distributed_fused_window
 from xlb_tpu.ops import Macroscopic
 
 
-def run(cells_per_device_x=64, ny=64, nz=128, num_steps=200, force=5e-7, omega=1.6,
-        tier="fused", precision="FP32FP32"):
+def run(cells_per_device_x=64, ny=64, nz=128, num_steps=200, force=5e-7, omega=1.6, precision="FP32FP32"):
     # FP32FP32 default: a weak body force (5e-7/step) needs 32-bit storage
-    # to accumulate -- 16-bit deviations quantize increments this small away
-    # near the steady state (see docs/performance.md "Precision").
-    if tier == "fused" and nz % 128 != 0:
-        print(f"nz={nz} is not a 128-multiple (Mosaic DMA lane rule); falling back to the jnp tier")
-        tier = "jnp"
+    # to accumulate -- 16-bit storage quantizes increments this small away
     xlb.init(velocity_set=D3Q19(), default_backend=xlb.ComputeBackend.JAX,
              default_precision_policy=xlb.PrecisionPolicy[precision])
     n_dev = jax.device_count()
     nx = cells_per_device_x * n_dev
-    grid = grid_factory((nx, ny, nz))
+    grid = grid_factory((nx, ny, nz), mesh_shape=(n_dev, 1, 1))
     print(f"{n_dev} device(s), domain {nx}x{ny}x{nz} = {nx * ny * nz / 1e6:.1f}M cells, "
-          f"sharded {dict(zip(grid.axis_names, grid.mesh_shape))}, tier={tier}, {precision}")
+          f"sharded {dict(zip(grid.axis_names, grid.mesh_shape))}, {precision}")
 
     box = grid.bounding_box_indices()
     walls = np.unique(np.concatenate([np.asarray(box[k]) for k in ("bottom", "top")], axis=1), axis=1)
@@ -56,29 +45,11 @@ def run(cells_per_device_x=64, ny=64, nz=128, num_steps=200, force=5e-7, omega=1
         force_vector=np.array([force, 0.0, 0.0]),
     )
     f_0, f_1, bc_mask, missing_mask = stepper.prepare_fields()
+    window = stepper.build_multi_step(num_steps, donate=False)
 
-    if tier == "fused":
-        window = build_distributed_fused_window(stepper, num_steps, tile=(8, 16))
-
-        def run_window(f_0, f_1):
-            return window(f_0, f_1, bc_mask, missing_mask, omega)
-    else:
-        stepper_d = distribute(stepper, grid, xlb.DefaultConfig.velocity_set)
-
-        @jax.jit
-        def run_window(f_0, f_1):
-            def body(t, carry):
-                a, b = carry
-                a, b = stepper_d(a, b, bc_mask, missing_mask, omega, t)
-                return (b, a)
-
-            return jax.lax.fori_loop(0, num_steps, body, (f_0, f_1))
-
-    f_0, f_1 = run_window(f_0, f_1)  # compile + run
-    float(jnp.sum(f_0[0, 0, 0, :8].astype(jnp.float32)))
+    f_0, f_1 = jax.block_until_ready(window(f_0, f_1, bc_mask, missing_mask, omega))  # compile + run
     t0 = time.perf_counter()
-    f_0, f_1 = run_window(f_0, f_1)
-    float(jnp.sum(f_0[0, 0, 0, :8].astype(jnp.float32)))
+    f_0, f_1 = jax.block_until_ready(window(f_0, f_1, bc_mask, missing_mask, omega))
     dt = time.perf_counter() - t0
 
     _, u = Macroscopic()(f_0.astype(jnp.float32))
@@ -94,8 +65,6 @@ if __name__ == "__main__":
     p = argparse.ArgumentParser()
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--cells-per-device-x", type=int, default=64)
-    p.add_argument("--tier", choices=("fused", "jnp"), default="fused")
     p.add_argument("--precision", default="FP32FP32")
     args = p.parse_args()
-    run(cells_per_device_x=args.cells_per_device_x, num_steps=args.steps,
-        tier=args.tier, precision=args.precision)
+    run(cells_per_device_x=args.cells_per_device_x, num_steps=args.steps, precision=args.precision)

@@ -22,21 +22,10 @@ the fused tier); drag/lift use the momentum-exchange method
 The cylinder wall defaults to HybridBC interpolated bounce-back with EXACT
 per-link circle distances (geometry/distances.py::implicit_link_distances;
 the reference's curved-BC machinery, bc_hybrid.py:39-391, is Warp/3D-only
-so it cannot run this 2D case at all).  Measured on one TPU v5e (jnp tier,
-f32):
-
-    default (D=60, U=0.035, hybrid):  Cd_max 3.2253  Cl_max 0.9964  St 0.2994
-        -- ALL THREE inside the published intervals.
-    D=40, U=0.05,  hybrid:            Cd_max 3.2379  Cl_max 1.0104  St 0.2979
-    D=60, U=0.025, hybrid:            Cd_max 3.2093  Cl_max 0.9903  St 0.2994
-    D=60, U=0.05,  staircase:         Cd_max 3.310   Cl_max 1.063   St 0.2983
-
-The sweep separates the two error terms: the staircase wall carries a
-+2-3% bias that the curved-wall distances remove; what remains is the
-compressibility bias (+~Ma^2, pushes UP, see U=0.05) against the
-second-order discretization error (pushes DOWN, see U=0.025), which
-balance inside the intervals at the default (D=60, U=0.035).
-Asserted in-suite by tests/models/test_schafer_turek.py (real-chip tier).
+so it cannot run this 2D case at all).  The default (D=60, U=0.035,
+hybrid) is the configuration the published intervals are asserted at;
+its result on the GPU is not measured yet.
+Asserted in-suite by tests/models/test_schafer_turek.py (``gpu`` marker).
 """
 
 import sys as _sys, pathlib as _pl

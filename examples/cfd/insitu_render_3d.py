@@ -1,6 +1,6 @@
 """In-situ rendered 3D flow past a sphere.
 
-TPU-native counterpart of the reference's PhantomGaze showcase (reference
+Counterpart of the reference's PhantomGaze showcase (reference
 README.md:121,137: "in-situ on GPU rendering ... no I/O" of a Q-criterion
 surface over an airfoil): the whole visualization pipeline — macroscopic
 velocity, Q-criterion, gradient-shaded isosurface colored by velocity

@@ -2,7 +2,7 @@
 examples/cfd/lid_driven_cavity_2d_distributed.py:13-27).
 
 Same scene as lid_driven_cavity_2d but wrapped with distribute(): on a
-multi-device mesh the streaming halo exchange rides ICI via ppermute.
+multi-device mesh the streaming halo exchange is a ppermute between devices.
 """
 
 import sys as _sys, pathlib as _pl

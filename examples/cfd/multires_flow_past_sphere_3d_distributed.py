@@ -1,17 +1,13 @@
-"""Distributed multires flow past a sphere: the fused multires tier on a
-device mesh.
+"""Distributed multires flow past a sphere on a device mesh.
 
-Multi-chip analogue of multires_flow_past_sphere_3d.py -- the reference
+Multi-device analogue of multires_flow_past_sphere_3d.py -- the reference
 can only run multires multi-GPU through the Neon C++ runtime
-(nse_multires_stepper.py:540-1110 + mGrid halos); here the per-level
-fields shard over a (px, py) jax.sharding.Mesh, level coupling distributes
-under GSPMD, and each fused CTS kernel runs as a shard_map island with
-ppermute halo exchange (parallel/multires_distribute.py).
+(nse_multires_stepper.py:540-1110 + mGrid halos); here every level's
+fields shard over a (px, py) jax.sharding.Mesh and GSPMD partitions the
+jnp-tier multires step, level coupling included.
 
-On one chip this falls back to the single-device fused tier (the wrapper
-only engages when an axis is actually sharded); run under
-XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu to
-exercise the mesh path without hardware.
+Run under XLA_FLAGS=--xla_force_host_platform_device_count=8
+JAX_PLATFORMS=cpu to exercise the mesh without GPUs.
 """
 
 import sys as _sys, pathlib as _pl
@@ -25,7 +21,6 @@ from xlb_tpu.velocity_set import D3Q19
 from xlb_tpu.grid import grid_factory
 from xlb_tpu.grid.multires import MultiresGrid
 from xlb_tpu.helper.simulation_manager import MultiresSimulationManager
-from xlb_tpu.mres_perf_optimization_type import MresPerfOptimizationType
 from xlb_tpu.geometry import sphere_triangles
 from xlb_tpu.boundary import EquilibriumBC, FullwayBounceBackBC, HalfwayBounceBackBC
 
@@ -45,9 +40,7 @@ def run(coarse=(32, 16, 16), num_coarse_steps=40, u_in=0.03, mesh_shape=None):
         mesh = Mesh(np.array(jax.devices()[: px * py]).reshape(px, py), ("x", "y"))
     print(f"mesh: {mesh_shape}")
 
-    # refine a box around the sphere, inset from the walls so no coarse BC
-    # voxel lies inside the refined region (keeps the fused coarsest pass
-    # engaged; see models/multires.py::_coarse_bc_placement_ok)
+    # refine a box around the sphere, inset from the walls
     extent = (coarse[1] - 4, coarse[1] - 4, coarse[2] - 4)
     ox = max(coarse[0] // 4 - extent[0] // 2, 2)
     origin = (ox, 2, 2)
@@ -71,11 +64,7 @@ def run(coarse=(32, 16, 16), num_coarse_steps=40, u_in=0.03, mesh_shape=None):
             EquilibriumBC(rho=1.0, u=(u_in, 0.0, 0.0), indices=box_ne["right"]),
         ],
     }
-    sim = MultiresSimulationManager(
-        grid, omega_finest=1.6, boundary_conditions=bcs,
-        mres_perf_opt=MresPerfOptimizationType.FUSION_AT_FINEST, mesh=mesh,
-    )
-    print("finest tier:", sim.stepper.active_finest_tier)
+    sim = MultiresSimulationManager(grid, omega_finest=1.6, boundary_conditions=bcs, mesh=mesh)
     sim.run(num_coarse_steps, window=min(10, num_coarse_steps))
 
     rho, u = sim.export_macroscopic()[0]  # finest level

@@ -2,9 +2,9 @@
 through the device in ghost-padded x-slabs
 (reference examples/out_of_core/lid_driven_cavity.py).
 
-With ``--n 768`` the populations alone are ~34 GB -- larger than a v5e
-chip's 16 GB HBM -- yet the sweep only ever holds one padded slab (plus
-its double-buffered transfer) on device.  Each sweep advances
+With ``--n 768`` the populations alone are ~34 GB, yet the sweep only
+ever holds one padded slab (plus its double-buffered transfer) on
+device.  Each sweep advances
 ``steps_per_sweep`` LBM steps per host<->device round trip; host writeback
 overlaps the next slab's compute (see xlb_tpu/experimental/ooc.py).
 """

@@ -1,9 +1,6 @@
 """2D MLUPS benchmark CLI (companion to mlups_3d.py).
 
-2D lid-driven cavity, D2Q9; the fused window exploits the 2D kernel's
-nearly-free temporal blocking (k steps per HBM fetch,
-kernels/collide_stream_2d.py) -- 11.1 GLUPS at 2048^2 k=8 on one v5e chip
-(docs/performance.md has the k sweep).
+2D lid-driven cavity, D2Q9, on the jnp tier or the fused PALLAS window.
 """
 
 import sys as _sys, pathlib as _pl
@@ -15,9 +12,8 @@ import time
 import numpy as np
 
 
-def benchmark(n, num_steps, backend_tier, precision, warmup, reps, temporal_steps=None):
+def benchmark(n, num_steps, backend_tier, precision, warmup, reps):
     import jax
-    import jax.numpy as jnp
 
     import xlb_tpu as xlb
     from xlb_tpu.velocity_set import D2Q9
@@ -27,7 +23,7 @@ def benchmark(n, num_steps, backend_tier, precision, warmup, reps, temporal_step
 
     xlb.init(
         velocity_set=D2Q9(),
-        default_backend=xlb.ComputeBackend.JAX,
+        default_backend=xlb.ComputeBackend.PALLAS if backend_tier == "pallas" else xlb.ComputeBackend.JAX,
         default_precision_policy=xlb.PrecisionPolicy[precision],
     )
     grid = grid_factory((n, n))
@@ -40,42 +36,22 @@ def benchmark(n, num_steps, backend_tier, precision, warmup, reps, temporal_step
     ]
     stepper = IncompressibleNavierStokesStepper(grid, boundary_conditions=bcs)
     f0, f1, bc_mask, missing_mask = stepper.prepare_fields()
-
-    if backend_tier == "pallas":
-        from xlb_tpu.kernels.fused_step import build_fused_window
-
-        run_window = build_fused_window(
-            stepper, num_steps, interpret=jax.default_backend() == "cpu", temporal_steps=temporal_steps
-        )
-    else:
-
-        @jax.jit
-        def run_window(f0, f1, bc_mask, missing_mask, omega):
-            def body(i, carry):
-                a, b = carry
-                a, b = stepper(a, b, bc_mask, missing_mask, omega, i)
-                return (b, a)
-
-            return jax.lax.fori_loop(0, num_steps, body, (f0, f1))
+    run_window = stepper.build_multi_step(num_steps, donate=False)
 
     omega = 1.6
-    f0, f1 = run_window(f0, f1, bc_mask, missing_mask, omega)
-    float(jnp.sum(f0[0, :2, :2].astype(jnp.float32)))  # sync
-    for _ in range(max(0, warmup - 1)):
-        f0, f1 = run_window(f0, f1, bc_mask, missing_mask, omega)
-    float(jnp.sum(f0[0, :2, :2].astype(jnp.float32)))
-
-    best = float("inf")
+    for _ in range(max(1, warmup)):
+        jax.block_until_ready(run_window(f0, f1, bc_mask, missing_mask, omega))
+    times = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        f0, f1 = run_window(f0, f1, bc_mask, missing_mask, omega)
-        float(jnp.sum(f0[0, :2, :2].astype(jnp.float32)))
-        best = min(best, time.perf_counter() - t0)
+        jax.block_until_ready(run_window(f0, f1, bc_mask, missing_mask, omega))
+        times.append(time.perf_counter() - t0)
+    secs = float(np.median(times))
 
-    mlups = n * n * num_steps / best / 1e6
+    mlups = n * n * num_steps / secs / 1e6
     print(
-        f"D2Q9 BGK {precision} tier={backend_tier} {n}^2: "
-        f"{mlups:.1f} MLUPS ({best / num_steps * 1e3:.3f} ms/step, {reps} reps)"
+        f"D2Q9 BGK {precision} tier={stepper.active_tier} {n}^2: "
+        f"{mlups:.1f} MLUPS ({secs / num_steps * 1e3:.3f} ms/step, median of {reps} reps) on {jax.devices()[0].device_kind}"
     )
     return mlups
 
@@ -87,7 +63,6 @@ if __name__ == "__main__":
     p.add_argument("--backend", choices=["jax", "pallas"], default="pallas")
     p.add_argument("--precision", default="FP32FP32")
     p.add_argument("--warmup", type=int, default=2)
-    p.add_argument("--reps", type=int, default=3)
-    p.add_argument("--temporal-steps", type=int, default=None, help="LBM steps per HBM fetch (default 8)")
+    p.add_argument("--reps", type=int, default=5)
     args = p.parse_args()
-    benchmark(args.edge, args.num_steps, args.backend, args.precision, args.warmup, args.reps, args.temporal_steps)
+    benchmark(args.edge, args.num_steps, args.backend, args.precision, args.warmup, args.reps)

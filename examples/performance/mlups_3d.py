@@ -14,9 +14,8 @@ import time
 import numpy as np
 
 
-def benchmark(cube_edge, num_steps, backend_tier, velocity_set_name, collision, precision, warmup, reps, tile, window=False, temporal_steps=None):
+def benchmark(cube_edge, num_steps, backend_tier, velocity_set_name, collision, precision, warmup, reps):
     import jax
-    import jax.numpy as jnp
 
     import xlb_tpu as xlb
     from xlb_tpu import velocity_set as vsets
@@ -26,7 +25,7 @@ def benchmark(cube_edge, num_steps, backend_tier, velocity_set_name, collision, 
 
     xlb.init(
         velocity_set=getattr(vsets, velocity_set_name)(),
-        default_backend=xlb.ComputeBackend.JAX,
+        default_backend=xlb.ComputeBackend.PALLAS if backend_tier == "pallas" else xlb.ComputeBackend.JAX,
         default_precision_policy=xlb.PrecisionPolicy[precision],
     )
     n = cube_edge
@@ -46,52 +45,24 @@ def benchmark(cube_edge, num_steps, backend_tier, velocity_set_name, collision, 
         grid, boundary_conditions=bcs, collision_type=collision, collision_params=params
     )
     f0, f1, bc_mask, missing_mask = stepper.prepare_fields()
-
-    if backend_tier == "pallas" and window:
-        # the production path: fused window (temporal blocking + shifted
-        # 16-bit storage auto-selected; see kernels/fused_step.py)
-        from xlb_tpu.kernels.fused_step import build_fused_window
-
-        run_window = build_fused_window(
-            stepper, num_steps, tile=tile, interpret=jax.default_backend() == "cpu",
-            temporal_steps=temporal_steps, donate=True
-        )
-    else:
-        if backend_tier == "pallas":
-            from xlb_tpu.kernels.fused_step import build_fused_step
-
-            step_fn = build_fused_step(stepper, tile=tile, interpret=jax.default_backend() == "cpu")
-        else:
-            step_fn = stepper
-
-        @jax.jit
-        def run_window(f0, f1, bc_mask, missing_mask, omega):
-            def body(i, carry):
-                a, b = carry
-                a, b = step_fn(a, b, bc_mask, missing_mask, omega, i)
-                return (b, a)
-
-            return jax.lax.fori_loop(0, num_steps, body, (f0, f1))
+    # one jitted window per repetition; 16-bit policies keep deviation-form
+    # storage inside PALLAS windows
+    run_window = stepper.build_multi_step(num_steps, donate=False)
 
     omega = 1.9
-    f0, f1 = run_window(f0, f1, bc_mask, missing_mask, omega)
-    float(jnp.sum(f0[0, 0, 0, :8].astype(jnp.float32)))  # sync
-    for _ in range(max(0, warmup - 1)):
-        f0, f1 = run_window(f0, f1, bc_mask, missing_mask, omega)
-    float(jnp.sum(f0[0, 0, 0, :8].astype(jnp.float32)))
-
-    best = float("inf")
+    for _ in range(max(1, warmup)):
+        jax.block_until_ready(run_window(f0, f1, bc_mask, missing_mask, omega))
+    times = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        f0, f1 = run_window(f0, f1, bc_mask, missing_mask, omega)
-        float(jnp.sum(f0[0, 0, 0, :8].astype(jnp.float32)))
-        best = min(best, time.perf_counter() - t0)
+        jax.block_until_ready(run_window(f0, f1, bc_mask, missing_mask, omega))
+        times.append(time.perf_counter() - t0)
+    secs = float(np.median(times))
 
-    mlups = n**3 * num_steps / best / 1e6
-    mode = "window" if (backend_tier == "pallas" and window) else "per-step"
+    mlups = n**3 * num_steps / secs / 1e6
     print(
-        f"{velocity_set_name} {collision} {precision} tier={backend_tier} ({mode}) {n}^3: "
-        f"{mlups:.1f} MLUPS ({best / num_steps * 1e3:.3f} ms/step, {reps} reps)"
+        f"{velocity_set_name} {collision} {precision} tier={stepper.active_tier} {n}^3: "
+        f"{mlups:.1f} MLUPS ({secs / num_steps * 1e3:.3f} ms/step, median of {reps} reps) on {jax.devices()[0].device_kind}"
     )
     return mlups
 
@@ -105,10 +76,7 @@ if __name__ == "__main__":
     p.add_argument("--collision", choices=["BGK", "KBC", "SmagorinskyLESBGK", "TRT", "MRT", "PowerLawBGK"], default="BGK")
     p.add_argument("--precision", default="FP32FP32")
     p.add_argument("--warmup", type=int, default=2)
-    p.add_argument("--reps", type=int, default=3)
-    p.add_argument("--tile", type=int, nargs=2, default=None, help="(TX, TY); default: auto (8, 64)-style")
-    p.add_argument("--window", action="store_true", help="run the fused window (temporal blocking + shifted storage)")
-    p.add_argument("--temporal-steps", type=int, default=None, help="LBM steps per HBM pass in --window mode (default 2)")
+    p.add_argument("--reps", type=int, default=5)
     args = p.parse_args()
     benchmark(
         args.cube_edge,
@@ -119,7 +87,4 @@ if __name__ == "__main__":
         args.precision,
         args.warmup,
         args.reps,
-        tuple(args.tile) if args.tile else None,
-        window=args.window,
-        temporal_steps=args.temporal_steps,
     )

@@ -134,7 +134,7 @@ def test_free_slip_fused_parity():
     ]
     stepper = IncompressibleNavierStokesStepper(grid, boundary_conditions=bcs)
     f0, f1, bm, mm = stepper.prepare_fields()
-    fused = build_fused_step(stepper, tile=(8, 8), interpret=True)
+    fused = build_fused_step(stepper, interpret=True)
 
     fa, fb, ga, gb = f0, f1, f0, f1
     for t in range(3):

@@ -42,7 +42,7 @@ def test_fused_hybrid_matches_jnp_tier(method):
     hybrid = stepper.boundary_conditions[-1]
     assert hybrid._distances is not None and np.isfinite(hybrid._distances).any()
 
-    fused = build_fused_step(stepper, tile=(8, 8), interpret=True)
+    fused = build_fused_step(stepper, interpret=True)
     fa, fb = f0, f1
     ga, gb = f0, f1
     for t in range(3):
@@ -61,7 +61,7 @@ def test_fused_hybrid_no_distance_and_moving_wall():
     stepper = _sphere_config("bounceback_regularized", use_mesh_distance=False,
                              prescribed_value=(0.01, 0.0, 0.0))
     f0, f1, bm, mm = stepper.prepare_fields()
-    fused = build_fused_step(stepper, tile=(8, 8), interpret=True)
+    fused = build_fused_step(stepper, interpret=True)
     fa, fb = f0, f1
     ga, gb = f0, f1
     for t in range(2):
@@ -103,7 +103,7 @@ def test_fused_hybrid_spatial_moving_wall_matches_jnp_tier(method):
     hybrid = stepper.boundary_conditions[-1]
     assert hybrid._distances is not None and np.isfinite(hybrid._distances).any()
 
-    fused = build_fused_step(stepper, tile=(8, 8), interpret=True)
+    fused = build_fused_step(stepper, interpret=True)
     fa, fb = f0, f1
     ga, gb = f0, f1
     for t in range(3):
@@ -133,7 +133,7 @@ def test_fused_hybrid_differentiates_without_solids():
     stepper = IncompressibleNavierStokesStepper(grid, boundary_conditions=bcs)
     f0, f1, bm, mm = stepper.prepare_fields()
     assert not stepper.has_solids
-    fused = build_fused_step(stepper, tile=(8, 8), interpret=True)
+    fused = build_fused_step(stepper, interpret=True)
 
     def loss(f):
         _, out = fused(f, f, bm, mm, 1.5, 0)

@@ -60,7 +60,7 @@ def test_fused_d3q19_over_100_bc_ids_matches_jnp_tier():
     assert max(ids) > 100, f"scene must exercise >100 distinct BC ids, got max {max(ids)}"
     f0, f1, bm, mm = stepper.prepare_fields()
 
-    fused = build_fused_step(stepper, tile=(8, 8), interpret=True)
+    fused = build_fused_step(stepper, interpret=True)
     fa, fb = f0, f1
     ga, gb = f0, f1
     for t in range(2):

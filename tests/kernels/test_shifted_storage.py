@@ -35,8 +35,8 @@ def test_shifted_window_matches_plain_f32():
     stepper = IncompressibleNavierStokesStepper(grid, boundary_conditions=bcs)
     f0, f1, bm, mm = stepper.prepare_fields()
 
-    run_plain = build_fused_window(stepper, 4, tile=(8, 8), kernel="blocked", interpret=True, shifted=False)
-    run_shift = build_fused_window(stepper, 4, tile=(8, 8), kernel="blocked", interpret=True, shifted=True)
+    run_plain = build_fused_window(stepper, 4, interpret=True, shifted=False)
+    run_shift = build_fused_window(stepper, 4, interpret=True, shifted=True)
     fa, _ = run_plain(f0, f1, bm, mm, 1.5)
     ga, _ = run_shift(f0, f1, bm, mm, 1.5)
     assert float(jnp.abs(fa - ga).max()) < 1e-5
@@ -60,7 +60,7 @@ def _bf16_tgv_ratio(shifted):
     f0 = quadratic_equilibrium(rho, jnp.asarray(u), vs._c, vs._w, jnp.float32).astype(jnp.bfloat16)
     stepper = IncompressibleNavierStokesStepper(grid)
     _, _, bm, mm = stepper.prepare_fields()
-    run = build_fused_window(stepper, steps, tile=(8, 8), kernel="blocked", interpret=True, shifted=shifted)
+    run = build_fused_window(stepper, steps, interpret=True, shifted=shifted)
     f, _ = run(f0, f0, bm, mm, omega)
     _, ut = Macroscopic()(f.astype(jnp.float32))
     ke0 = float((u**2).sum())

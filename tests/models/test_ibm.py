@@ -141,7 +141,7 @@ def test_ibm_pallas_backend_matches_jax():
 
 
 def test_factored_transfer_matches_scatter_oracle():
-    """The MXU-factored Peskin spread/interpolation matches the scatter/
+    """The factored (dense) Peskin spread/interpolation matches the scatter/
     gather oracle to f32 roundoff (same phi values, different summation
     order)."""
     from xlb_tpu.models.ibm import (

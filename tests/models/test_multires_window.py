@@ -1,11 +1,11 @@
-"""Resident-ring multires window (VERDICT r2 #3): build_window keeps the
-finest level ghost-extended across coarse steps; results must match the
-per-step __call__ path exactly, and solid-tagged voxels must freeze on
-both tiers."""
+"""Multires windows: build_window must match the per-step __call__ path,
+solid-tagged voxels must freeze, and the removed fused strategies must
+refuse to build."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from tests.conftest import init_env
 from xlb_tpu.velocity_set import D3Q19
@@ -14,99 +14,75 @@ from xlb_tpu.models.multires import MultiresIncompressibleNavierStokesStepper
 from xlb_tpu.mres_perf_optimization_type import MresPerfOptimizationType
 
 
-def _scene(mres_perf, bcs_factory=None):
+def _scene(bcs_factory=None, grid=None):
     init_env(D3Q19)
     bcs = bcs_factory() if bcs_factory is not None else None
-    grid = MultiresGrid((32, 32, 32), boxes=[((8, 8, 8), (16, 16, 16))])
-    st = MultiresIncompressibleNavierStokesStepper(
-        grid, boundary_conditions=bcs, mres_perf_opt=mres_perf
-    )
+    grid = grid or MultiresGrid((32, 32, 32), boxes=[((8, 8, 8), (16, 16, 16))])
+    st = MultiresIncompressibleNavierStokesStepper(grid, boundary_conditions=bcs)
     fs0, _, bms, mms = st.prepare_fields()
     key = jax.random.PRNGKey(3)
     fs0 = [f + 0.01 * jax.random.uniform(key, f.shape, f.dtype) for f in fs0]
     return st, fs0, bms, mms
 
 
-def test_window_matches_per_step():
-    st, fs0, bms, mms = _scene(MresPerfOptimizationType.FUSION_AT_FINEST)
-    assert st._cts is not None, "fused finest pair must build for 32^3/32^3"
-    assert "thin" in st.active_finest_tier, st.active_finest_tier
-
+def _window_vs_per_step(st, fs0, bms, mms, steps=3):
     fa = [jnp.array(f) for f in fs0]
-    for _ in range(3):
+    for _ in range(steps):
         fa = st(fa, bms, mms, 1.6)
-    run = st.build_window(3, donate=False)
+    run = st.build_window(steps, donate=False)
     fw = run([jnp.array(f) for f in fs0], bms, mms, 1.6)
     for a, w in zip(fa, fw):
-        # XLA fuses the jnp glue differently inside the fori_loop window
-        # than in the eager per-step path -> 1-ulp contraction differences
+        # XLA fuses the glue differently inside the fori_loop window than
+        # in the eager per-step path -> 1-ulp contraction differences
         np.testing.assert_allclose(np.asarray(a), np.asarray(w), rtol=2e-6, atol=1e-7)
+    return fa
+
+
+def test_window_matches_per_step():
+    st, fs0, bms, mms = _scene()
+    assert st.active_tier == "jnp"
+    _window_vs_per_step(st, fs0, bms, mms)
 
 
 def test_fused_solid_freeze_matches_jnp():
     """An interior solid block on the finest level: solids are 255-tagged
-    (shell gets the BC id) and freeze identically on the jnp and fused
-    tiers (reference Warp solid early-out, nse_stepper.py:440-441)."""
+    (shell gets the BC id) and keep their populations (reference Warp
+    solid early-out, nse_stepper.py:440-441), in the window too."""
     from xlb_tpu.boundary import HalfwayBounceBackBC
-    from xlb_tpu.boundary.registry import boundary_condition_registry
 
     def bcs_factory():
         ii, jj, kk = np.meshgrid(*[np.arange(6, 10)] * 3, indexing="ij")
         block = np.stack([ii.ravel(), jj.ravel(), kk.ravel()])
         return {0: [HalfwayBounceBackBC(indices=block.tolist())]}
 
-    def scene(perf):
-        boundary_condition_registry.reset()
-        return _scene(perf, bcs_factory=bcs_factory)
-
-    st_n, fs0, bms, mms = scene(MresPerfOptimizationType.NAIVE_COLLIDE_STREAM)
+    st, fs0, bms, mms = _scene(bcs_factory=bcs_factory)
     assert (np.asarray(bms[0][0]) == 255).any(), "interior block voxels must be solid-tagged"
-    fn = [jnp.array(f) for f in fs0]
-    for _ in range(2):
-        fn = st_n(fn, bms, mms, 1.6)
+    fn = _window_vs_per_step(st, fs0, bms, mms, steps=2)
     solid = np.asarray(bms[0][0]) == 255
-    np.testing.assert_array_equal(
-        np.asarray(fn[0])[:, solid], np.asarray(fs0[0])[:, solid]
-    )  # frozen on the jnp tier
-
-    st_f, fs0f, bmsf, mmsf = scene(MresPerfOptimizationType.FUSION_AT_FINEST)
-    assert st_f._cts is not None
-    ff = [jnp.array(f) for f in fs0f]
-    for _ in range(2):
-        ff = st_f(ff, bmsf, mmsf, 1.6)
-    for a, b in zip(fn, ff):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(np.asarray(fn[0])[:, solid], np.asarray(fs0[0])[:, solid])
 
 
 def test_fully_refined_fast_path_matches_naive():
-    """Full-domain refinement (the fully-refined shortcut skips the dead
-    coarse-grid collide) must match the NAIVE jnp tier."""
-    init_env(D3Q19)
+    """Full-domain refinement (every coarse cell overwritten by the
+    coalescence): the window matches the per-step path and stays finite."""
     grid = MultiresGrid((16, 16, 16), boxes=[((0, 0, 0), (16, 16, 16))])
+    st, fs0, bms, mms = _scene(grid=grid)
+    fa = _window_vs_per_step(st, fs0, bms, mms)
+    assert all(np.isfinite(np.asarray(f)).all() for f in fa)
 
-    def stepper(perf):
-        from xlb_tpu.boundary.registry import boundary_condition_registry
 
-        boundary_condition_registry.reset()
-        return MultiresIncompressibleNavierStokesStepper(grid, mres_perf_opt=perf)
-
-    st_f = stepper(MresPerfOptimizationType.FUSION_AT_FINEST)
-    assert st_f._cts is not None
-    assert st_f._fully_refined_fast(1, None)
-    st_n = stepper(MresPerfOptimizationType.NAIVE_COLLIDE_STREAM)
-    fs0, _, bms, mms = st_f.prepare_fields()
-    key = jax.random.PRNGKey(7)
-    fs0 = [f + 0.01 * jax.random.uniform(key, f.shape, f.dtype) for f in fs0]
-
-    fa = [jnp.array(f) for f in fs0]
-    fb = [jnp.array(f) for f in fs0]
-    for _ in range(3):
-        fa = st_f(fa, bms, mms, 1.6)
-        fb = st_n(fb, bms, mms, 1.6)
-    for a, b in zip(fa, fb):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-6, atol=1e-7)
-
-    run = st_f.build_window(3, donate=False)
-    fw = run([jnp.array(f) for f in fs0], bms, mms, 1.6)
-    for a, w in zip(fa, fw):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(w), rtol=2e-6, atol=1e-7)
+@pytest.mark.parametrize(
+    "strategy",
+    [
+        MresPerfOptimizationType.FUSION_AT_FINEST,
+        MresPerfOptimizationType.FUSION_AT_FINEST_SFV,
+        MresPerfOptimizationType.FUSION_AT_FINEST_SFV_ALL,
+    ],
+)
+def test_removed_fusion_strategies_raise(strategy):
+    """Strategies whose only effect was a removed fused tier fail loudly
+    instead of silently running the jnp tier."""
+    init_env(D3Q19)
+    grid = MultiresGrid((16, 16, 16), boxes=[((4, 4, 4), (8, 8, 8))])
+    with pytest.raises(ValueError, match="NAIVE_COLLIDE_STREAM"):
+        MultiresIncompressibleNavierStokesStepper(grid, mres_perf_opt=strategy)

@@ -62,7 +62,7 @@ def test_ooc_fused_tier_matches_in_core():
     from xlb_tpu.boundary.registry import boundary_condition_registry
 
     def _cavity3d():
-        grid = grid_factory((16, 16, 128), mesh_shape=(1, 1, 1), devices=__import__("jax").devices()[:1])
+        grid = grid_factory((16, 16, 32), mesh_shape=(1, 1, 1), devices=__import__("jax").devices()[:1])
         box = grid.bounding_box_indices()
         box_ne = grid.bounding_box_indices(remove_edges=True)
         walls = np.unique(
@@ -321,7 +321,7 @@ def test_ooc_shifted_io_window_end_to_end():
     from xlb_tpu.boundary.registry import boundary_condition_registry
 
     def _cavity3d():
-        grid = grid_factory((16, 16, 128), mesh_shape=(1, 1, 1), devices=__import__("jax").devices()[:1])
+        grid = grid_factory((16, 16, 32), mesh_shape=(1, 1, 1), devices=__import__("jax").devices()[:1])
         box = grid.bounding_box_indices()
         box_ne = grid.bounding_box_indices(remove_edges=True)
         walls = np.unique(

@@ -7,27 +7,19 @@ toward Johnson & Patel's 1.087 as the resolution doubles, landing within
 load-bearing (the 2D Schafer-Turek study measured plain staircase ~3%
 off on Cd, so a staircase sphere would not reliably pass it).
 
-Measured so far on one TPU v5e (examples/cfd/sphere_drag_validation.py,
-mean over ~12 acoustic periods): D=24 gives Cd = 1.155 (+6.3%, inside
-the +/-8% blockage band).  The D=36/48 rungs are defined and gated here;
-each D doubles the step count AND the cell count (~47.8M at D=48), so
-the full ladder is ~40 min of chip time and runs under the validation
-marker only.  Reference force path: momentum_transfer.py:121-212.
+None of the rungs has been measured on the GPU yet.  Each D doubles the
+step count AND the cell count (~47.8M at D=48), so the ladder runs on the
+card only (``gpu`` marker).  Reference force path: momentum_transfer.py:121-212.
 """
 
 import importlib.util
-import os
 import pathlib
 
 import pytest
 
 pytestmark = [
     pytest.mark.validation,
-    pytest.mark.skipif(
-        not os.environ.get("XLB_TEST_ON_TPU"),
-        reason="three wind-tunnel runs up to 47.8M cells (~40 min on one v5e); "
-        "set XLB_TEST_ON_TPU=1 to run.",
-    ),
+    pytest.mark.gpu,
 ]
 
 CD_PUBLISHED = 1.087  # Johnson & Patel 1999, steady axisymmetric Re=100

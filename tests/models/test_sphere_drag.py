@@ -11,9 +11,8 @@ FreeSlip tunnel walls): blockage ~ +2%, first-order staircase remnants at
 the open-hole fallback links ~ few %.  The assertion band is therefore
 published +/- 8%: Cd in [1.00, 1.18].
 
-This is a ~30k-step run on a 288 x 144 x 144 lattice (minutes on one TPU
-v5e, hours on the CPU test mesh), so it executes only against a real
-accelerator (XLB_TEST_ON_TPU=1); the CPU suite skips it with this reason.
+This is a ~30k-step run on a 288 x 144 x 144 lattice (hours on the CPU
+test mesh), so it is marked ``gpu`` and runs only on the card.
 
 The reference exercises this path qualitatively only
 (examples/cfd/windtunnel_3d.py:120-285 reports Cd time series without a
@@ -21,18 +20,13 @@ published-value assertion).
 """
 
 import importlib.util
-import os
 import pathlib
 
 import pytest
 
 pytestmark = [
     pytest.mark.validation,
-    pytest.mark.skipif(
-        not os.environ.get("XLB_TEST_ON_TPU"),
-        reason="full sphere-drag run needs the real chip (~4 min); "
-        "set XLB_TEST_ON_TPU=1 to run.",
-    ),
+    pytest.mark.gpu,
 ]
 
 

@@ -48,7 +48,7 @@ xlb.init(
 )
 
 mesh_shape = (4 * nproc, 1, 1)
-devices = hybrid_mesh_devices(mesh_shape)  # DCN axis = outermost sharded x
+devices = hybrid_mesh_devices(mesh_shape)  # the host axis = outermost sharded x
 grid = grid_factory((32, 16, 16), mesh_shape=mesh_shape, devices=devices)
 box = grid.bounding_box_indices()
 box_ne = grid.bounding_box_indices(remove_edges=True)

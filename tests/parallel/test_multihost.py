@@ -2,7 +2,7 @@
 devices run the jnp distributed stepper over one global 8-device mesh via
 ``xlb_tpu.parallel.init_distributed`` + ``hybrid_mesh_devices``; the
 gathered global field must match a plain single-process run of the same
-scene (reference scale claim README.md:116; SURVEY §5 ICI/DCN).
+scene (reference scale claim README.md:116; SURVEY §5).
 """
 
 import os

@@ -1,10 +1,9 @@
 """Turbulent-channel DNS validation (reference
 examples/cfd/turbulent_channel_3d.py:21-36 + data/).
 
-The full validation needs ~240k steps of a 1.2M-cell channel (minutes on a
-TPU chip, hours on the CPU test mesh), so CI checks the dataset and the
-comparison machinery; the long run is gated behind XLB_LONG_TESTS=1 and
-its TPU result is recorded in the example docstring.
+The full validation needs ~240k steps of a 1.2M-cell channel (hours on the
+CPU test mesh), so CI checks the dataset and the comparison machinery; the
+long run is gated behind XLB_LONG_TESTS=1.
 """
 
 import os

@@ -151,8 +151,8 @@ def test_multiphase_droplet_laplace():
 
 
 def test_multires_flow_past_sphere_distributed():
-    """Fused multires tier on the (4,2) virtual mesh through the example
-    surface (shard_map kernel islands + GSPMD coupling)."""
+    """Multires on the (4,2) virtual mesh through the example surface:
+    every level sharded over (x, y), GSPMD partitions the jnp tier."""
     umax = _load("cfd/multires_flow_past_sphere_3d_distributed.py").run(
         coarse=(32, 16, 16), num_coarse_steps=10, mesh_shape=(4, 2)
     )
@@ -200,7 +200,7 @@ def test_rayleigh_benard_2d():
 
 def test_mlups_3d_cli():
     m = _load("performance/mlups_3d.py").benchmark(
-        16, 4, "pallas", "D3Q19", "BGK", "FP32FP32", warmup=1, reps=1, tile=(8, 8), window=True
+        16, 4, "pallas", "D3Q19", "BGK", "FP32FP32", warmup=1, reps=1
     )
     assert m > 0
 

@@ -1,9 +1,9 @@
-"""xlb_tpu: a TPU-native lattice Boltzmann CFD framework.
+"""xlb_tpu: a differentiable lattice Boltzmann CFD framework.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of the XLB framework
 (reference: hsalehipour/XLB): differentiable 2D/3D LBM with a full
-boundary-condition zoo, GSPMD multi-chip sharding with ICI halo exchange,
-and a fused Pallas collide-stream kernel for the hot loop.
+boundary-condition zoo, GSPMD multi-device sharding, and a fused Pallas
+collide-stream kernel (Triton route, NVIDIA GPUs) for the hot loop.
 
 Quick start::
 

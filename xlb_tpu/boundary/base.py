@@ -10,8 +10,8 @@ the fused Pallas kernel.
 Design difference vs the reference: prescribed values (density, velocity,
 profiles) are kept as explicit arrays/closures on the BC object instead of
 being encoded into unused slots of the ``f_1`` buffer
-(helper_functions_bc.py:371-501).  On TPU the aux-slot trick buys nothing
-(no per-thread gather to save) and would couple BCs to buffer layout.
+(helper_functions_bc.py:371-501).  Here the fused kernel reads a separate
+aux side array instead, so BCs stay decoupled from the buffer layout.
 """
 
 from enum import Enum, auto

@@ -1,6 +1,6 @@
 // Byte-plane shuffle + zstd codec for out-of-core host slabs.
 //
-// TPU-native counterpart of the reference's nvComp compressed tiles
+// Counterpart of the reference's nvComp compressed tiles
 // (xlb/experimental/ooc/tiles/compressed_tile.py:68-248): there, tiles
 // live LZ4-compressed in GPU/host memory and decompress on access.  Here
 // the OOC domain is host-RAM-resident (ooc.py), so the codec is a host

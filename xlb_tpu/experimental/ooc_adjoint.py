@@ -1,6 +1,6 @@
 """Differentiable out-of-core runs: host-checkpointed slab-exact adjoint.
 
-TPU-native counterpart of the reference's OOC autodiff pipeline
+Counterpart of the reference's OOC autodiff pipeline
 (examples/out_of_core/autodiff_lbm.py + subroutine/{autodiff_stepper_
 subroutine.py,rho_loss_subroutine.py}): there, Warp adjoint kernels walk
 host-resident checkpoints under manual gradient-tape subroutines.  Here
@@ -23,14 +23,14 @@ the same capability is three pieces of plain JAX:
   ``num_sweeps/checkpoint_every + checkpoint_every`` domain copies.
 
 The per-slab window differentiates through whatever tier runs it: the
-jnp tier via native autodiff, the fused Pallas tier via its paired fused
-adjoint sweep (kernels/adjoint_step.py) -- no hand-written tape.
+jnp tier via native autodiff, the fused Pallas tier via its custom_vjp
+(whose backward is the jnp tier's VJP) -- no hand-written tape.
 
 Voxel-local losses only (L2 on density, etc.): the loss is a sum of
 per-tile terms, so its cotangent needs no ghost exchange.  Gradients are
 w.r.t. the initial populations; omega gradients are not accumulated
 across sweeps (use the in-core path for parameter gradients on domains
-that fit HBM).
+that fit device memory).
 """
 
 import numpy as np
@@ -38,6 +38,7 @@ import jax
 import jax.numpy as jnp
 
 from xlb_tpu.experimental.ooc import OOCArray, ooc_map
+from xlb_tpu.utils import tiers
 
 
 def _wrap_accumulate(acc, df_pad, start, ghost, axis=1):
@@ -166,13 +167,12 @@ class OOCAdjointSolver:
         if self._window is not None:
             return self._window
         stepper, g = self.stepper, self.g
-        want_fused = self.tier == "fused" or (self.tier == "auto" and jax.default_backend() != "cpu")
+        want_fused = self.tier == "fused" or (self.tier == "auto" and tiers.fused_by_default())
         window = None
         if want_fused:
             try:
                 # build_fused_STEP, not _window: the step carries the
-                # custom_vjp (fused Pallas adjoint / jnp-tier fallback)
-                # that makes the whole window reverse-differentiable
+                # custom_vjp that makes the whole window reverse-differentiable
                 from xlb_tpu.kernels.fused_step import build_fused_step
 
                 slab_shape = list(stepper.grid.shape)

@@ -2,7 +2,7 @@
 
 The reference's mesh maskers run Warp BVH queries per voxel on the GPU
 (boundary_masker/{aabb,ray,winding,aabb_close}.py).  Voxelization is a
-setup-time operation, so the TPU-native design (SURVEY.md §7.5) does it on
+setup-time operation, so this design (SURVEY.md §7.5) does it on
 the host with vectorized NumPy (optionally accelerated by the C++ extension
 in xlb_tpu/geometry/native) and ships only the resulting voxel indices to
 the device.

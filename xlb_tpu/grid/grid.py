@@ -137,6 +137,6 @@ def grid_factory(shape, compute_backend=None, velocity_set=None, mesh_shape=None
     """Create a grid (reference xlb/grid/grid.py:19-58).
 
     ``compute_backend`` / ``velocity_set`` are accepted for signature parity;
-    the single TPU grid serves both the JAX and PALLAS tiers.
+    the single dense grid serves both the JAX and PALLAS tiers.
     """
     return Grid(shape, mesh_shape=mesh_shape, devices=devices)

@@ -1,8 +1,8 @@
 """Multi-resolution grid: nested dense cuboid levels with factor-2 refinement.
 
-TPU-native replacement for the reference's Neon mGrid
+Dense replacement for the reference's Neon mGrid
 (xlb/grid/multires_grid.py:41-224).  Neon stores sparse per-level voxel sets
-with explode/coalesce intrinsics; on TPU each level is a dense rectangular
+with explode/coalesce intrinsics; here each level is a dense rectangular
 array (the reference's levels are nested cuboids anyway -- utils/mesher.py
 ``make_cuboid_mesh``), and inter-level transfers are precomputed gathers /
 reshape-averages (see xlb_tpu/models/multires.py).

@@ -19,13 +19,12 @@ class MultiresSimulationManager:
         self.omega = float(omega_finest)
         self.stepper = MultiresIncompressibleNavierStokesStepper(
             grid, boundary_conditions=boundary_conditions, collision_type=collision_type,
-            mres_perf_opt=mres_perf_opt, mesh=mesh, mesh_axes=mesh_axes,
+            mres_perf_opt=mres_perf_opt,
         )
         self.f_0, self.f_1, self.bc_mask, self.missing_mask = self.stepper.prepare_fields()
         if mesh is not None:
-            # shard every level over the mesh's (x, y) axes; the jnp tier
-            # distributes via GSPMD and the fused tier via its shard_map
-            # kernel islands (parallel/multires_distribute.py)
+            # shard every level over the mesh's (x, y) axes; GSPMD
+            # partitions the jnp tier from these input shardings
             from jax.sharding import NamedSharding, PartitionSpec as P
 
             spec_axes = (None,) + tuple(mesh_axes[: grid.dim - 1]) + (None,) * max(grid.dim - 2, 0)
@@ -49,13 +48,10 @@ class MultiresSimulationManager:
 
     def run(self, num_coarse_steps, window=None):
         """Advance ``num_coarse_steps``; steps are grouped into jitted
-        ``lax.fori_loop`` windows (one device dispatch per window -- vital
-        through high-latency links)."""
+        ``lax.fori_loop`` windows (one device dispatch per window)."""
         window = num_coarse_steps if window is None else min(window, num_coarse_steps)
         if getattr(self, "_window_n", None) != window:
             self._window_n = window
-            # resident-ring window: the finest level's ghost-extended state
-            # stays on the device across all coarse steps of the window
             self._jitted_window = self.stepper.build_window(window, donate=False)
         done = 0
         while done + window <= num_coarse_steps:

@@ -1,24 +1,22 @@
-"""Fused pull-stream + boundary + collide Pallas TPU kernel.
+"""Fused pull-stream + boundary + collide Pallas kernel (Triton route).
 
-This is the performance tier of the framework -- the TPU-native analogue of
-the reference's fused per-voxel Warp kernel (nse_stepper.py:427-466), which
-performs the whole LBM timestep in one pass over HBM:
+This is the performance tier of the framework -- the analogue of the
+reference's fused per-voxel Warp kernel (nse_stepper.py:427-466), which
+performs the whole LBM timestep in one pass over device memory:
 
     read f_0 neighborhood -> pull-stream -> streaming BCs -> moments ->
     equilibrium -> collide -> collision BCs -> write f_1
 
-Design (3D):
+Design:
 
-- Populations are laid out ``(q, X, Y, Z)``; the kernel grid tiles (X, Y)
-  and keeps Z fully resident, so z-direction pulls are in-register lane
-  rolls (``pltpu.roll``) with periodic wrap for free.
-- x/y pulls need one-deep halos.  Pallas block mappings cannot overlap, so
-  the same f_0 array is passed nine times with different BlockSpecs: the
-  (TX, TY, Z) center tile, four one-deep edge slabs, and four corner pencils,
-  each indexed with modular arithmetic for periodicity.  HBM read overhead is
-  ~(1 + 2/TX + 2/TY) of the minimum.
-- The kernel assembles a (q, TX+2, TY+2, Z) halo tile in VMEM scratch; each
-  direction's pull is then a static slice plus a lane roll.
+- Populations are ``(q, *shape)`` arrays viewed flat as ``(q, N)``.  One
+  program updates a power-of-two block of consecutive cells; the tail
+  block is masked at the store (its gathers are clamped in bounds).
+- The pull is a gathered neighbour load per direction: the cell's
+  coordinates come from its flat index, each axis gets its three
+  ``(coord - s) mod extent`` variants (s in -1, 0, 1), and direction l
+  reads ``f[l, x - c_lx, y - c_ly, z - c_lz]`` -- periodic wrap falls out
+  of the modular indices.  Nothing is carried between programs.
 - ``bc_mask`` and ``missing_mask`` are pre-packed into ONE int32 voxel field
   (missing-direction bitfield in bits 0..q-1, BC id in the free high bits;
   see ``bc_id_shift``) by the stepper, cutting mask traffic from q+1 bytes
@@ -26,21 +24,13 @@ Design (3D):
 - The BC list is unrolled at trace time (the Pallas analogue of the
   reference's ``wp.static`` BC unrolling, nse_stepper.py:366-380); each BC
   becomes a masked select epilogue.
-
-Periodicity across shards: on a multi-chip mesh the wrapper in
-``xlb_tpu.parallel`` exchanges one-deep x-halos over ICI with ``ppermute``
-and calls the ``halo_x`` variant of this kernel, whose input carries an
-extra layer on each x side instead of wrapping.
 """
-
-import functools
-import math
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 
 def bc_id_shift(q):
@@ -83,11 +73,6 @@ def kernel_bc_id(bc_id, q):
     return bc_id
 
 
-def kernel_sfv_id(q):
-    """Packed id of cell type 254 (SFV / multires ghost-ring keep-out)."""
-    return 254 if q <= 19 else 30
-
-
 def kernel_solid_id(q):
     """Packed id of cell type 255 (solid)."""
     return 255 if q <= 19 else 31
@@ -122,57 +107,6 @@ def kernel_collision_spec(stepper):
             "iterations": inner.iterations,
         })
     return ct
-
-
-@jax.custom_jvp
-def _fast_recip(x):
-    """f32 reciprocal via the VPU's approximate-reciprocal lane plus ONE
-    Newton step (r <- r(2 - xr)): quadratic convergence squares the ~2^-12
-    seed error to ~1 ulp, for a handful of mul/sub lanes instead of a
-    multi-pass divide.  Carries the analytic d(1/x) = -1/x^2 JVP because
-    ``pl.reciprocal`` has no differentiation rule (the fused adjoint
-    kernels differentiate straight through the collision body)."""
-    r = pl.reciprocal(x, approx=True)
-    return r * (2.0 - x * r)
-
-
-@_fast_recip.defjvp
-def _fast_recip_jvp(primals, tangents):
-    (x,), (dx,) = primals, tangents
-    y = _fast_recip(x)
-    return y, -y * y * dx
-
-
-def _roll_lane(x, shift, logical=None):
-    """Periodic roll along the last (lane) axis; |shift| small.
-
-    ``logical``: wrap at this LOGICAL extent instead of the physical lane
-    extent -- used when the z axis is internally padded to a 128-multiple
-    lane extent (the pad columns hold solid keep-out cells).  The naive
-    roll over the padded extent is wrong only in the |shift|-wide seam
-    band, which a second roll (offset by the pad width) plus an iota
-    select repairs; pad columns then only ever feed pad outputs, so the
-    padded kernel matches the unpadded jnp tier bit-for-bit on the
-    logical domain, periodic z included."""
-    if shift == 0:
-        return x
-
-    def roll(v, s):
-        # pltpu.roll requires a non-negative shift; Mosaic only rotates
-        # 32-bit data, so sub-32-bit compute dtypes round-trip through f32
-        if v.dtype.itemsize < 4:
-            return pltpu.roll(v.astype(jnp.float32), s % v.shape[-1], axis=v.ndim - 1).astype(v.dtype)
-        return pltpu.roll(v, s % v.shape[-1], axis=v.ndim - 1)
-
-    phys = x.shape[-1]
-    if logical is None or logical == phys:
-        return roll(x, shift)
-    pad = phys - logical
-    naive = roll(x, shift)
-    seam_fix = roll(x, shift + (pad if shift > 0 else -pad))
-    iota = jax.lax.broadcasted_iota(jnp.int32, x.shape, x.ndim - 1)
-    in_seam = (iota < shift) if shift > 0 else (iota >= logical + shift)
-    return jnp.where(in_seam, seam_fix, naive)
 
 
 def spec_uses_aux(spec):
@@ -217,11 +151,12 @@ def aux_layout(bc_specs, vs, base=0):
 
 
 def _build_kernel_body(
-    vs, collision, bc_specs, compute_dtype, store_dtype, TX, TY,
+    vs, collision, bc_specs, compute_dtype, store_dtype,
     smagorinsky_coef=0.17, shifted=False, has_solids=True, force_vector=None,
-    ade=False, extern_force=False, logical_z=None,
+    ade=False, extern_force=False,
 ):
-    """Returns the Pallas kernel body closure for a DdQq fused step.
+    """Returns the per-cell physics of a DdQq fused step (``pointwise_core``
+    and the flags the launcher needs).
 
     ``shifted=True`` stores populations in deviation form g_l = f_l - w_l
     between steps: adding/subtracting the static weight at load/store keeps
@@ -458,25 +393,12 @@ def _build_kernel_body(
             inv_beta = 1.0 / beta
             dh = [fneq[l] if ds[l] is zeros else fneq[l] - ds[l] for l in range(q)]
 
-            if jnp.dtype(cdt) == jnp.float32:
-                # f32 divides are the costliest lanes in this block (the
-                # kernel is VPU-compute-bound, docs/performance.md KBC
-                # roofline).  Verified against the jnp-tier oracle
-                # on-chip at 8.9e-08 max diff (tolerance 5e-6,
-                # tests/kernels/test_fused_kernel.py).
-                _rcp = _fast_recip
-            else:
-
-                def _rcp(x):
-                    return 1.0 / x
             # entropic products <ds, dh>_{1/feq} and <dh, dh>_{1/feq},
             # pair-shared: ds is even in c (ds_l == ds_opp), and with
             # inv = 1/(feq_l feq_o) the two per-direction divisions of a
             # pair collapse into ONE (dh_l/feq_l = dh_l feq_o inv) --
-            # 14 divides instead of 27 at q=27.  VPU divides are the
-            # costliest lanes in this block (docs/performance.md KBC
-            # roofline); pure reassociation, so jnp-tier parity holds to
-            # the usual f32 roundoff.  Directions with ds == 0 (statically
+            # 14 divides instead of 27 at q=27; pure reassociation, so
+            # jnp-tier parity holds to the usual f32 roundoff.  Directions with ds == 0 (statically
             # known) skip the <ds, dh> term entirely.
             sp1 = None
             sp2 = None
@@ -485,11 +407,11 @@ def _build_kernel_body(
                 if o < l:
                     continue  # pair handled at its lower index
                 if o == l:  # rest direction
-                    tmp = dh[l] * _rcp(feq[l])
+                    tmp = dh[l] / feq[l]
                     t1 = None if ds[l] is zeros else tmp * ds[l]
                     t2 = tmp * dh[l]
                 else:
-                    inv = _rcp(feq[l] * feq[o])
+                    inv = 1.0 / (feq[l] * feq[o])
                     a = dh[l] * feq[o]
                     b = dh[o] * feq[l]
                     t1 = None if ds[l] is zeros else ds[l] * ((a + b) * inv)
@@ -497,7 +419,7 @@ def _build_kernel_body(
                 if t1 is not None:
                     sp1 = t1 if sp1 is None else sp1 + t1
                 sp2 = t2 if sp2 is None else sp2 + t2
-            gamma = inv_beta - (2.0 - inv_beta) * sp1 * _rcp(cdt(1e-32) + sp2)
+            gamma = inv_beta - (2.0 - inv_beta) * sp1 / (cdt(1e-32) + sp2)
             return [
                 f_s[l] - beta * (gamma * dh[l]) if ds[l] is zeros
                 else f_s[l] - beta * (2.0 * ds[l] + gamma * dh[l])
@@ -533,7 +455,7 @@ def _build_kernel_body(
 
         if spec["bc_type"] == "velocity":
             if isinstance(spec["value"], str) and spec["value"] == "aux":  # per-voxel prescribed velocity
-                u = [jax.lax.index_in_dim(aux, aux_u_off + a, axis=0, keepdims=False) for a in range(d)]
+                u = [aux[aux_u_off + a] for a in range(d)]
                 unormal = None
                 for a in range(d):
                     t = normals[a] * u[a]
@@ -554,7 +476,7 @@ def _build_kernel_body(
         else:  # pressure
             if isinstance(spec["value"], str) and spec["value"] == "aux_rho":
                 # per-voxel prescribed density from the aux rho channel
-                rho = jax.lax.index_in_dim(aux, aux_rho_off, axis=0, keepdims=False).astype(cdt)
+                rho = aux[aux_rho_off].astype(cdt)
             else:
                 rho = jnp.full_like(fsum, cdt(spec["value"]))
             unormal = -1.0 + fsum / rho
@@ -615,7 +537,7 @@ def _build_kernel_body(
         if isinstance(mw, str) and mw == "aux":
             # spatial moving wall: per-voxel wall velocity from the aux
             # velocity channels (same channels as halfway's mw="aux")
-            u_aux = [jax.lax.index_in_dim(aux, aux_u_off + a, axis=0, keepdims=False) for a in range(d)]
+            u_aux = [aux[aux_u_off + a] for a in range(d)]
 
         def mw_term(l):
             """Moving-wall correction 6 w_l (c_l . u_wall) for direction l:
@@ -634,7 +556,7 @@ def _build_kernel_body(
             return cdt(mw[l])
         if use_dist:
             w_off = aux_w_offs[spec["id"]]
-            t_w = [jax.lax.index_in_dim(aux, w_off + l, axis=0, keepdims=False) for l in range(q)]
+            t_w = [aux[w_off + l] for l in range(q)]
         else:
             t_w = [cdt(0.5)] * q  # only the Tao closure reads these
 
@@ -698,15 +620,14 @@ def _build_kernel_body(
     def pointwise_core(fs_raw, fp_raw, packed, omega, aux=None, staging_read=None):
         """Per-voxel physics given already-gathered populations.
 
-        ``fs_raw[l]`` is the raw (store-form) pulled slab of direction l;
-        ``fp_raw(l)`` lazily returns the raw centered (pre-streaming) slab.
-        Everything here is voxel-local except the extrapolation-outflow
-        staging epilogue, which needs ``staging_read`` (the halo-tile
-        reader) for its tangential-neighbor pulls.  The fused adjoint
-        passes a reader over its own staged-slab VJP inputs (one per
-        static (m, t) pair, see adjoint_step.staging_keys) so the reverse
-        sweep differentiates the staging too.  Returns the list of
-        post-collision compute-dtype slabs (unshifted, uncast)."""
+        ``fs_raw[l]`` is the raw (store-form) pulled block of direction l;
+        ``fp_raw(l)`` lazily returns the raw centered (pre-streaming) block;
+        ``aux[k]`` is aux channel k.  Everything here is voxel-local except
+        the extrapolation-outflow staging epilogue, which needs
+        ``staging_read(m, t)`` -- raw direction m at the cell minus the
+        d-vector offset t -- for its tangential-neighbor pulls.  Returns
+        the list of post-collision compute-dtype blocks (unshifted,
+        uncast)."""
         bc = unpack_bc_id(packed, q)
         f_s = [fs_raw[l] + cdt(w[l]) if shifted else fs_raw[l] for l in range(q)]
 
@@ -744,7 +665,7 @@ def _build_kernel_body(
                             ca = c[a, l]
                             if ca == 0:
                                 continue
-                            av = jax.lax.index_in_dim(aux, aux_u_off + a, axis=0, keepdims=False)
+                            av = aux[aux_u_off + a]
                             t = av if ca == 1 else -av
                             cu = t if cu is None else cu + t
                         refl = f_pre(opp[l]) if cu is None else f_pre(opp[l]) + cdt(6.0 * w[l]) * cu
@@ -785,7 +706,7 @@ def _build_kernel_body(
                 rho = rho + f_s[l]
             # advecting velocity: always channels [0:d] (BC aux channels,
             # if any, start at offset d -- aux_layout(base=d))
-            u = [jax.lax.index_in_dim(aux, a, axis=0, keepdims=False) for a in range(d)]
+            u = [aux[a] for a in range(d)]
             feq = [None] * q
             for l in range(q):
                 if feq[l] is not None:
@@ -822,7 +743,7 @@ def _build_kernel_body(
         elif extern_force and not ade:
             # the per-voxel force always sits in channels [0:d] (BC aux
             # channels, if any, start at offset d -- aux_layout(base=d))
-            u_f = [u[a] + jax.lax.index_in_dim(aux, a, axis=0, keepdims=False) for a in range(d)]
+            u_f = [u[a] + aux[a] for a in range(d)]
             feq_f = equilibrium(rho, u_f)
             f_out = [f_out[l] + (feq_f[l] - feq[l]) for l in range(q)]
 
@@ -842,13 +763,12 @@ def _build_kernel_body(
         # (bc_extrapolation_outflow.py:107-133).  The neighbor term
         # f_s[m](v - n) equals raw[m](v - t) with t = n + c_m; wherever the
         # staging mask is true, c_m . n = -1, so t is purely tangential and
-        # the read is an ordinary halo-tile pull -- correct even at slab
-        # edges (which the 2-step kernel's first sweep consumes).
+        # the read is an ordinary gathered pull.
         for spec in bc_specs:
             if spec["kind"] != "extrapolation_outflow":
                 continue
             assert staging_read is not None, (
-                "extrapolation_outflow staging needs halo-tile reads; this caller requires voxel-local physics"
+                "extrapolation_outflow staging needs neighbour reads; this caller requires voxel-local physics"
             )
             on = bc == kernel_bc_id(spec["id"], q)
             n = spec["normal"]  # static d-vector (outward)
@@ -856,18 +776,12 @@ def _build_kernel_body(
 
             for l in range(q):
                 m = opp[l]
-                if d == 3:
-                    t = (int(n[0] + c[0, m]), int(n[1] + c[1, m]), int(n[2] + c[2, m]))
-                else:
-                    t = (int(n[0] + c[0, m]), 0, int(n[1] + c[1, m]))
+                t = tuple(int(n[a] + c[a, m]) for a in range(d))
                 if any(abs(tc) > 1 for tc in t):
                     # c_m . n >= +1: such a direction is never a staged slot
                     # at this face (its pull source is interior fluid)
                     continue
-                # staging_read applies the z lane roll itself: pltpu.roll
-                # has no differentiation rule, so the fused adjoint must
-                # pre-roll its staged-slab VJP inputs OUTSIDE the traced core
-                neighbor = staging_read(m, 1 - t[0], 1 - t[1], t[2])
+                neighbor = staging_read(m, t)
                 if shifted:
                     neighbor = neighbor + cdt(w[m])
                 extrap_opp = cs_speed * neighbor + (1.0 - cs_speed) * f_s[m]
@@ -882,166 +796,111 @@ def _build_kernel_body(
             f_out = [jnp.where(solid, f_pre(l), f_out[l]) for l in range(q)]
         return f_out
 
-    def compute_from_ext(read_ext, packed, out, omega, aux=None):
-        """Shared physics body: ``read_ext(l, x0, y0)`` must return the
-        (TX, TY, Z) slab of direction l at halo-tile offset (x0, y0)
-        (0 = pulled from -1 side, 1 = centered, 2 = pulled from +1 side).
-        ``packed`` is the int32 mask (missing bits 0..q-1, bc id in the
-        free high bits per ``bc_id_shift``, see ``pack_masks``).  ``aux``, when given, is the (d, ...)
-        per-voxel prescribed-velocity field (compute dtype) used by BC
-        specs flagged spatial -- the TPU analogue of the reference's
-        aux-data slots (helper_functions_bc.py:371-501)."""
-        # ---- pull streaming: static slice + lane roll per direction ------
-        # 3D: x/y pulls from the halo tile, z via lane roll.
-        # 2D: x pulls from the halo tile, y via lane roll (y is the lane dim).
-        fs_raw = []
-        for l in range(q):
-            if d == 3:
-                cx, cy, cz = int(c[0, l]), int(c[1, l]), int(c[2, l])
-            else:
-                cx, cy, cz = int(c[0, l]), 0, int(c[1, l])  # y0 stays centered (1)
-            fs_raw.append(_roll_lane(read_ext(l, 1 - cx, 1 - cy), cz, logical=logical_z))
 
-        f_out = pointwise_core(
-            fs_raw, lambda l: read_ext(l, 1, 1), packed, omega, aux,
-            staging_read=lambda m, x0, y0, tz: _roll_lane(read_ext(m, x0, y0), tz, logical=logical_z),
-        )
-        for l in range(q):
-            result = f_out[l] - cdt(w[l]) if shifted else f_out[l]
-            out[l] = result.astype(store_dtype)
-
-    def kernel(omega_ref, center, xlo, xhi, ylo, yhi, c00, c01, c10, c11, mask_ref, *rest):
-        out, ext = rest[-2:]
-        aux_val = rest[0][...].astype(cdt) if use_aux else None
-        omega = cdt(omega_ref[0, 0])
-
-        # ---- assemble halo tile in VMEM scratch: (q, TX+2, TY+2, Z) -------
-        # Mosaic requires the last two dims of every block to be (8,128)-
-        # divisible or full, so one-deep y-strips cannot be fetched directly:
-        # y-halos and corners arrive as full-height neighbor blocks and the
-        # single needed row is sliced here.
-        ext[:, 1 : TX + 1, 1 : TY + 1, :] = center[...].astype(cdt)
-        ext[:, 0:1, 1 : TY + 1, :] = xlo[...].astype(cdt)
-        ext[:, TX + 1 : TX + 2, 1 : TY + 1, :] = xhi[...].astype(cdt)
-        ext[:, 1 : TX + 1, 0:1, :] = ylo[:, :, TY - 1 : TY, :].astype(cdt)
-        ext[:, 1 : TX + 1, TY + 1 : TY + 2, :] = yhi[:, :, 0:1, :].astype(cdt)
-        ext[:, 0:1, 0:1, :] = c00[:, :, TY - 1 : TY, :].astype(cdt)
-        ext[:, 0:1, TY + 1 : TY + 2, :] = c01[:, :, 0:1, :].astype(cdt)
-        ext[:, TX + 1 : TX + 2, 0:1, :] = c10[:, :, TY - 1 : TY, :].astype(cdt)
-        ext[:, TX + 1 : TX + 2, TY + 1 : TY + 2, :] = c11[:, :, 0:1, :].astype(cdt)
-
-        def read_ext(l, x0, y0):
-            return ext[l, x0 : x0 + TX, y0 : y0 + TY, :]
-
-        compute_from_ext(read_ext, mask_ref[...], out, omega, aux_val)
-
-    kernel.compute_from_ext = compute_from_ext
-    kernel.pointwise_core = pointwise_core
-    kernel.use_aux = use_aux
-    kernel.aux_nchan = aux_nchan
-    kernel.moments = moments
-    kernel.equilibrium = equilibrium
-    kernel.collide = collide
-    return kernel
+    return pointwise_core, use_aux, aux_nchan
 
 
-def build_fused_collide_stream_3d(
+def build_fused_collide_stream(
     velocity_set,
     shape,
     collision="BGK",
     bc_specs=(),
     compute_dtype=jnp.float32,
     store_dtype=jnp.float32,
-    tile=(8, 8),
+    block=256,
+    num_warps=4,
     interpret=False,
-    halo_x=False,
     shifted=False,
     has_solids=True,
     force_vector=None,
+    ade=False,
+    extern_force=False,
 ):
-    """Build the fused 3D step: (f, mask_i32, omega) -> f_new.
+    """Build the fused step ``(f, mask_i32, omega, aux=None) -> f_new`` for
+    a 2-D or 3-D ``shape``.
 
-    ``shape`` is the local (X, Y, Z) extent.  With ``halo_x=True`` the f
-    input must carry one extra x-layer on each side (X+2) holding neighbor
-    data (supplied by the ICI halo exchange); x-pulls then read those layers
-    instead of wrapping periodically.
+    ``block`` (a power of two) is the number of consecutive cells one
+    program updates and ``num_warps`` the warps it runs with; the last
+    block is masked when it overhangs the domain.  ``aux`` is the
+    ``(nchan, *shape)`` per-voxel side array the BC specs, the ADE
+    velocity or the extern force read (``aux_layout``).
     """
-    X, Y, Z = shape
-    TX, TY = tile
-    q = velocity_set.q
-    assert X % TX == 0 and Y % TY == 0, f"tile {tile} must divide domain {shape[:2]}"
-    nX, nY = X // TX, Y // TY
-    kernel = _build_kernel_body(velocity_set, collision, list(bc_specs), compute_dtype, store_dtype, TX, TY, shifted=shifted, has_solids=has_solids, force_vector=force_vector)
-
-    fX = X + 2 if halo_x else X  # physical x-extent of the f input array
-
-    def fmap(dx_blocks, dy_blocks, bx, by):
-        """Index map factory for f blocks offset by whole blocks."""
-
-        def index_map(i, j):
-            # block indices in units of this spec's block shape (bx, by)
-            if halo_x:
-                # x element offset: 1 + i*TX - (1 if left halo) ... expressed
-                # in block units below per-spec; no modulo needed.
-                return (0, dx_blocks(i), dy_blocks(j), 0)
-            return (0, jax.lax.rem(dx_blocks(i) + fX // bx, fX // bx), jax.lax.rem(dy_blocks(j) + Y // by, Y // by), 0)
-
-        return index_map
-
-    # --- f BlockSpecs ------------------------------------------------------
-    if halo_x:
-        # element offsets: center starts at 1 + i*TX; left edge at i*TX;
-        # right edge at 1 + (i+1)*TX.  With block x-extent 1 the block index
-        # equals the element index; with extent TX it must be divisible -- so
-        # express center via index_map returning element/TX only when aligned.
-        # Simplest: give the center spec block shape (q, TX, TY, Z) but use an
-        # unblocked x via per-element maps is not possible, so we require the
-        # halo'd array to be laid out as [left | interior | right] and pass
-        # interior as its own array instead.
-        raise NotImplementedError("halo_x variant is provided by build_fused_collide_stream_3d_halo")
-
-    specs_f = [
-        pl.BlockSpec((q, TX, TY, Z), fmap(lambda i: i, lambda j: j, TX, TY)),  # center
-        pl.BlockSpec((q, 1, TY, Z), fmap(lambda i: i * TX - 1, lambda j: j, 1, TY)),  # x-lo
-        pl.BlockSpec((q, 1, TY, Z), fmap(lambda i: (i + 1) * TX, lambda j: j, 1, TY)),  # x-hi
-        # y-halos/corners: full-height neighbor blocks (Mosaic forbids 1-deep
-        # sublane strips); the kernel slices the single row it needs.
-        pl.BlockSpec((q, TX, TY, Z), fmap(lambda i: i, lambda j: j - 1, TX, TY)),  # y-lo block
-        pl.BlockSpec((q, TX, TY, Z), fmap(lambda i: i, lambda j: j + 1, TX, TY)),  # y-hi block
-        pl.BlockSpec((q, 1, TY, Z), fmap(lambda i: i * TX - 1, lambda j: j - 1, 1, TY)),  # c00 strip
-        pl.BlockSpec((q, 1, TY, Z), fmap(lambda i: i * TX - 1, lambda j: j + 1, 1, TY)),  # c01 strip
-        pl.BlockSpec((q, 1, TY, Z), fmap(lambda i: (i + 1) * TX, lambda j: j - 1, 1, TY)),  # c10 strip
-        pl.BlockSpec((q, 1, TY, Z), fmap(lambda i: (i + 1) * TX, lambda j: j + 1, 1, TY)),  # c11 strip
-    ]
-    spec_mask = pl.BlockSpec((TX, TY, Z), lambda i, j: (i, j, 0))
-    out_spec = pl.BlockSpec((q, TX, TY, Z), lambda i, j: (0, i, j, 0))
-
-    d = velocity_set.d
-    in_specs = [pl.BlockSpec(memory_space=pltpu.SMEM)] + specs_f + [spec_mask]
-    if kernel.use_aux:
-        nchan = kernel.aux_nchan
-        in_specs.append(pl.BlockSpec((nchan, TX, TY, Z), lambda i, j: (0, i, j, 0)))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=0,
-        grid=(nX, nY),
-        in_specs=in_specs,
-        out_specs=out_spec,
-        scratch_shapes=[pltpu.VMEM((q, TX + 2, TY + 2, Z), compute_dtype)],
+    d, q = velocity_set.d, velocity_set.q
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != d:
+        raise ValueError(f"shape {shape} does not match the D{d}Q{q} velocity set")
+    if block <= 0 or block & (block - 1):
+        raise ValueError(f"block must be a power of two, got {block}")
+    n_cells = int(np.prod(shape))
+    strides = [int(np.prod(shape[a + 1 :])) for a in range(d)]
+    c = velocity_set._c
+    w = velocity_set._w
+    cdt = compute_dtype
+    pointwise_core, use_aux, nchan = _build_kernel_body(
+        velocity_set, collision, list(bc_specs), compute_dtype, store_dtype,
+        shifted=shifted, has_solids=has_solids, force_vector=force_vector,
+        ade=ade, extern_force=extern_force,
     )
 
-    fused = pl.pallas_call(
+    def kernel(omega_ref, f_ref, mask_ref, *rest):
+        out_ref = rest[-1]
+        start = pl.program_id(0) * block
+        cell = start + jnp.arange(block, dtype=jnp.int32)
+        valid = cell < n_cells
+        cell = jnp.minimum(cell, n_cells - 1)  # tail lanes gather in bounds
+
+        # offs[a][s]: flat offset along axis a of the cell's coordinate
+        # minus s (periodic), s in (-1, 0, 1)
+        offs = []
+        for a in range(d):
+            coord = jax.lax.rem(jax.lax.div(cell, np.int32(strides[a])), np.int32(shape[a]))
+            lo = jnp.where(coord == 0, shape[a] - 1, coord - 1)
+            hi = jnp.where(coord == shape[a] - 1, 0, coord + 1)
+            offs.append({0: coord * strides[a], 1: lo * strides[a], -1: hi * strides[a]})
+
+        block_slice = pl.ds(start, block)
+
+        def load_block(ref, k):
+            return plgpu.load(ref.at[k, block_slice], mask=valid, other=0)
+
+        def gather(l, t):
+            """Raw population l at the cell minus the d-vector offset t."""
+            if not any(t):
+                return load_block(f_ref, l).astype(cdt)
+            idx = offs[0][t[0]]
+            for a in range(1, d):
+                idx = idx + offs[a][t[a]]
+            return plgpu.load(f_ref.at[l, idx]).astype(cdt)
+
+        zero = (0,) * d
+        fs_raw = [gather(l, tuple(int(c[a, l]) for a in range(d))) for l in range(q)]
+        packed = plgpu.load(mask_ref.at[block_slice], mask=valid, other=0)
+        aux = [load_block(rest[0], k).astype(cdt) for k in range(nchan)] if use_aux else None
+        omega = omega_ref[0].astype(cdt)
+        f_out = pointwise_core(fs_raw, lambda l: gather(l, zero), packed, omega, aux, staging_read=gather)
+        for l in range(q):
+            res = f_out[l] - cdt(w[l]) if shifted else f_out[l]
+            plgpu.store(out_ref.at[l, block_slice], res.astype(store_dtype), mask=valid)
+
+    call = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((q, X, Y, Z), store_dtype),
+        out_shape=jax.ShapeDtypeStruct((q, n_cells), store_dtype),
+        grid=(pl.cdiv(n_cells, block),),
         interpret=interpret,
-        compiler_params=None if interpret else pltpu.CompilerParams(vmem_limit_bytes=100 * 1024 * 1024),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps, num_stages=1),
+        name="lbm_collide_stream",
     )
 
     def step(f, mask_i32, omega, aux=None):
-        omega_arr = jnp.asarray(omega, dtype=compute_dtype).reshape(1, 1)
-        if kernel.use_aux:
-            assert aux is not None, "spatial-BC kernel needs the aux prescribed-velocity field"
-            return fused(omega_arr, f, f, f, f, f, f, f, f, f, mask_i32, aux)
-        return fused(omega_arr, f, f, f, f, f, f, f, f, f, mask_i32)
+        args = [jnp.asarray(omega, compute_dtype).reshape(1), f.reshape(q, n_cells), mask_i32.reshape(n_cells)]
+        if use_aux:
+            if aux is None:
+                raise ValueError("this BC set needs the per-voxel aux field")
+            args.append(aux.astype(jnp.float32).reshape(aux.shape[0], n_cells))
+        return call(*args).reshape((q,) + shape)
 
+    step.active_tier = f"pallas_triton block {block} warps {num_warps}" + (" interpret" if interpret else "")
+    step.interpret = interpret
+    step.aux_nchan = nchan if use_aux else 0
     return step

@@ -2,19 +2,24 @@
 
 Translates BC objects into static kernel epilogue specs, pre-packs the
 boolean ``missing_mask`` into an int32 direction bitfield (q <= 27 bits) and
-``bc_mask`` into an int32 id field, and builds the fused step callable.
+``bc_mask`` into an int32 id field, and builds the fused step and window
+callables.
 
 BCs supported in-kernel: EquilibriumBC, DoNothingBC, FullwayBounceBackBC,
 HalfwayBounceBackBC (incl. moving walls, constant or per-voxel spatial
 profiles), ZouHeBC + RegularizedBC (constant and spatial velocity and
-pressure), ExtrapolationOutflowBC (in-kernel staging), and HybridBC (all
-curved-boundary methods, per-link mesh distances AND spatial moving-wall
-profiles via the aux channels) -- the full reference BC surface.  Unknown
-BC classes raise and should use the JAX tier.
+pressure), ExtrapolationOutflowBC (in-kernel staging), FreeSlipBC and
+HybridBC (all curved-boundary methods, per-link mesh distances AND spatial
+moving-wall profiles via the aux channels) -- the full reference BC
+surface.  Unknown BC classes raise and should use the JAX tier.
 
 BC id capacity: D2Q9/D3Q19 scenes carry the full uint8 id space (1..253,
 reference parity) in the packed mask's free bits; D3Q27 is limited to 29
 distinct ids (see collide_stream.bc_id_shift).
+
+Every callable is differentiable w.r.t. the populations and omega through
+a ``custom_vjp`` whose backward is the jnp tier's VJP (the kernel has no
+transpose rule of its own).
 """
 
 from functools import partial
@@ -24,14 +29,14 @@ import jax
 import jax.numpy as jnp
 
 from xlb_tpu.boundary.base import ImplementationStep
-from xlb_tpu.utils.tiers import notify_fallback
+from xlb_tpu.utils import tiers
 from xlb_tpu.boundary.bc_equilibrium import EquilibriumBC
 from xlb_tpu.boundary.bc_do_nothing import DoNothingBC
 from xlb_tpu.boundary.bc_bounce_back import FullwayBounceBackBC, HalfwayBounceBackBC
 from xlb_tpu.boundary.bc_zouhe import ZouHeBC
 from xlb_tpu.boundary.bc_regularized import RegularizedBC
 from xlb_tpu.boundary.bc_extrapolation_outflow import ExtrapolationOutflowBC
-from xlb_tpu.kernels.collide_stream import build_fused_collide_stream_3d, kernel_collision_spec
+from xlb_tpu.kernels.collide_stream import aux_layout, bc_id_shift, build_fused_collide_stream, kernel_collision_spec
 
 
 def bc_to_spec(bc, velocity_set):
@@ -112,10 +117,10 @@ def _is_spatial_profile(bc):
 
 def build_aux_field(stepper):
     """Assemble the per-voxel aux side array for spatial BCs as a host
-    NumPy (nchan, *shape) array, or None when no BC needs it.  The TPU
-    analogue of the reference's f_1 aux-slot encoding
+    NumPy (nchan, *shape) array, or None when no BC needs it.  The
+    counterpart of the reference's f_1 aux-slot encoding
     (helper_functions_bc.py:371-501): spatial prescriptions ride a side
-    array fetched with each tile instead of stolen population slots.
+    array read with each block instead of stolen population slots.
 
     The channel layout is taken from ``collide_stream.aux_layout`` (the
     single source of truth shared with the kernel body): d velocity
@@ -128,8 +133,6 @@ def build_aux_field(stepper):
     it per slab and pass the slab through ``run(..., aux=...)``."""
     vs = stepper.velocity_set
     shape = tuple(stepper.grid.shape)
-    from xlb_tpu.kernels.collide_stream import aux_layout
-
     bc_specs = [bc_to_spec(bc, vs) for bc in stepper.boundary_conditions]
     u_off, rho_off, w_offs, nchan = aux_layout(bc_specs, vs)
     if nchan == 0:
@@ -193,19 +196,6 @@ def stepper_force_vector(stepper):
     return None if fv is None else np.asarray(fv, dtype=np.float64)
 
 
-def ring_val(q):
-    """Packed cell-type SFV/ghost keep-out value for a DdQq set, as a
-    Python int with int32 wraparound applied -- the canonical constant for
-    every ring/refined-region overwrite (models/multires.py, parallel/
-    multires_distribute.py; keep in sync with pack_masks below).  For
-    q <= 19 this is 254 << 19 (positive); for D3Q27, 30 << 27 (negative
-    after int32 wrap)."""
-    from xlb_tpu.kernels.collide_stream import bc_id_shift, kernel_sfv_id
-
-    v = int(np.int64(kernel_sfv_id(q)) << bc_id_shift(q))
-    return v - (1 << 32) if v >= (1 << 31) else v
-
-
 def pack_masks(bc_mask, missing_mask):
     """(bc_mask uint8 (1,*s), missing bool (q,*s)) -> one int32 (*s).
 
@@ -214,11 +204,9 @@ def pack_masks(bc_mask, missing_mask):
     the raw uint8 cell type in bits 19..26 for q <= 19 (full 253-id
     reference parity), or a 5-bit id in bits 27..31 for D3Q27 (specials
     254/255 remapped to 30/31, ids capped at 29 -- see kernel_bc_id).
-    One array instead of two halves the mask HBM traffic and VMEM
-    footprint of every fused kernel.
+    One array instead of two cuts the kernel's mask traffic from q + 1
+    bytes to 4 bytes per cell.
     """
-    from xlb_tpu.kernels.collide_stream import bc_id_shift
-
     q = missing_mask.shape[0]
     assert q <= 27, f"missing bitfield needs q <= 27 bits, got {q}"
     weights = jnp.asarray([1 << l for l in range(q)], dtype=jnp.int32).reshape((q,) + (1,) * (missing_mask.ndim - 1))
@@ -229,185 +217,58 @@ def pack_masks(bc_mask, missing_mask):
     return miss_i32 | (bc << bc_id_shift(q))
 
 
-def _dma_step_vmem_bytes(q, tile, Z, store_itemsize, aux_nchan=0):
-    """Working-set estimate for the single-step manual-DMA kernel, used only
-    to SHRINK the auto tile before Mosaic's scoped-VMEM check would fail.
-    Calibrated against observed compiles at 256^3 D3Q19: tile (8, 64) fits
-    without aux but exceeds the 100 MB scoped limit with 19 hybrid weight
-    channels (measured 109.7 MB)."""
-    TX, TY = tile
-    est = 2 * q * (TX + 2) * (TY + 16) * Z * store_itemsize  # double-buffered halo scratch
-    est += 2 * q * TX * TY * Z * store_itemsize  # pipelined out blocks
-    est += 2 * TX * TY * Z * 4  # packed-mask blocks
-    est += 4 * TX * TY * Z * 4  # body live-range allowance
-    # aux side array: double-buffered f32 in-blocks, an f32 cast copy, and
-    # epilogue live ranges -- 6x matches the measured 109.7 MB at the
-    # (8, 64) 19-channel f32 case exactly
-    est += 6 * aux_nchan * TX * TY * Z * 4
-    return est
 
 
-def _auto_tile(shape, q=19, store_itemsize=4, aux_nchan=0):
-    """Default (TX, TY) for the manual-DMA kernels: TX=8 matches the
-    sublane-friendly layout (falling back to smaller divisors for odd
-    x-extents, e.g. out-of-core padded slabs), TY as large as divides Y
-    AND fits the scoped-VMEM budget (wider tiles amortize the fixed 8-row
-    y-halo blocks) -- (8, 64) is the measured v5e optimum at 256^3
-    (docs/performance.md has the sweep); heavy aux configs (hybrid mesh
-    distances = q weight channels) shrink TY to stay under the limit."""
-    tx = next((t for t in (8, 4, 2, 1) if shape[0] % t == 0), 1)
-    # calibration: a 256^3 D3Q19 + 19-aux-channel config estimates 89.7 MB
-    # here but compiles to a measured 109.7 MB scoped allocation (Mosaic's
-    # body live ranges are not modeled) -- budget 78 MB keeps the measured-good q27 (8, 64) config while rejecting the failing one
-    # under the kernels' 100 MB vmem_limit_bytes
-    budget = int(78e6)
-    candidates = [t for t in (64, 32, 16, 8) if shape[1] % t == 0] or [8]
-    for ty in candidates:
-        if _dma_step_vmem_bytes(q, (tx, ty), shape[2], store_itemsize, aux_nchan) <= budget:
-            return (tx, ty)
-    return (tx, candidates[-1])
+def _build_kernel(stepper, shape, block=None, interpret=None, **flags):
+    """The fused collide-stream kernel for ``stepper`` on ``shape``, with
+    the platform's interpret mode and launch shape unless given."""
+    vs = stepper.velocity_set
+    pp = stepper.precision_policy
+    if interpret is None:
+        interpret = tiers.kernel_interpret()
+    default_block, num_warps = tiers.kernel_launch(int(np.prod(shape)), interpret)
+    if "collision" not in flags:
+        flags["collision"] = kernel_collision_spec(stepper)
+    return build_fused_collide_stream(
+        vs,
+        shape,
+        bc_specs=[bc_to_spec(bc, vs) for bc in stepper.boundary_conditions],
+        compute_dtype=pp.compute_dtype,
+        store_dtype=pp.store_dtype,
+        block=block or default_block,
+        num_warps=num_warps,
+        interpret=interpret,
+        has_solids=getattr(stepper, "has_solids", True),
+        **flags,
+    )
 
 
-def _auto_tile_x(X):
-    """Default tile_x for the 2D kernel: the largest 8-multiple divisor of
-    X up to 32 (the 2D kernels require 8 | tile_x | X; odd slab extents,
-    e.g. out-of-core padding, fall through to the caller's fallback)."""
-    return next((t for t in (32, 24, 16, 8) if X % t == 0), 8)
+def _stamp(fn, kernel):
+    fn.active_tier = kernel.active_tier
+    fn.interpret = kernel.interpret
+    return fn
 
 
-def build_fused_step(stepper, tile=None, interpret=None, kernel="dma", shape_override=None):
+def _zero_cotangent(x):
+    return np.zeros(np.shape(x), dtype=jax.dtypes.float0)
+
+
+def build_fused_step(stepper, block=None, interpret=None, shape_override=None):
     """Build the PALLAS-tier step for an IncompressibleNavierStokesStepper.
 
-    ``kernel``: "dma" (manual double-buffered halo DMAs, fastest) or
-    "blocked" (block-mapped halo fetches; simpler, more VMEM headroom).
     ``shape_override`` runs the step on a different (static) domain shape
-    than the stepper's grid, e.g. an out-of-core padded slab.
+    than the stepper's grid, e.g. an out-of-core padded slab; the caller
+    then passes the slab's aux field at run time (``step(..., aux=...)``).
     Returns a callable with the standard stepper signature
-    (f_0, f_1, bc_mask, missing_mask, omega, timestep) -> (f_0, f_1);
-    differentiable w.r.t. f_0 and omega in every dimension/kernel combo
-    (fused Pallas adjoint for 3D "dma", jnp-tier VJP otherwise).
+    (f_0, f_1, bc_mask, missing_mask, omega, timestep) -> (f_0, f_1).
     """
-    vs = stepper.velocity_set
-    shape = tuple(shape_override) if shape_override is not None else stepper.grid.shape
-    bc_specs = [bc_to_spec(bc, vs) for bc in stepper.boundary_conditions]
-    collision = kernel_collision_spec(stepper)
-    force_vector = stepper_force_vector(stepper)
+    shape = tuple(shape_override) if shape_override is not None else tuple(stepper.grid.shape)
     pp = stepper.precision_policy
+    fused = _build_kernel(stepper, shape, block, interpret, force_vector=stepper_force_vector(stepper))
     aux_np = build_aux_field(stepper)
-    # grid-shaped aux cannot be pre-sliced for an override shape (e.g. an
-    # out-of-core padded slab): the caller passes the matching slab-shaped
-    # aux at run time instead (``step(..., aux=slab_aux)``)
-    extern_aux = shape_override is not None and aux_np is not None
-    aux_dev = None if (aux_np is None or extern_aux) else jnp.asarray(aux_np)
-
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-
-    z_pad, logical_z = 0, None
-    if vs.d == 2:
-        from xlb_tpu.kernels.collide_stream_2d import build_fused_collide_stream_2d
-
-        kernel = "2d"
-        fused = build_fused_collide_stream_2d(
-            vs,
-            shape,
-            collision=collision,
-            bc_specs=bc_specs,
-            compute_dtype=pp.compute_dtype,
-            store_dtype=pp.store_dtype,
-            tile_x=(tile[0] if tile else _auto_tile_x(shape[0])),
-            interpret=interpret,
-            force_vector=force_vector,
-        )
-    else:
-        if kernel == "dma" and shape[2] % 128 != 0:
-            if shape_override is None and not interpret:
-                # Mosaic DMA slices need 128-multiple lane extents: pad z
-                # internally (pad columns = solid keep-out; lane rolls wrap
-                # at the LOGICAL extent, collide_stream._roll_lane) instead
-                # of dropping to the block-mapped kernel.  The physical
-                # lane extent is padded to 128 by the tiled TPU layout
-                # anyway, so the pad costs no extra HBM traffic.  (Interpret
-                # mode pays REAL compute for pad lanes -> keep the blocked
-                # fallback there; tests/kernels/test_fused_zpad.py covers
-                # the padded path explicitly.)
-                z_pad = (-shape[2]) % 128
-                logical_z = shape[2]
-                shape = (shape[0], shape[1], shape[2] + z_pad)
-            else:
-                notify_fallback(
-                    f"fused step: z extent {shape[2]} is not a 128-multiple; using the "
-                    "block-mapped kernel instead of the faster manual-DMA kernel"
-                )
-                kernel = "blocked"
-
-        if kernel == "dma":
-            from xlb_tpu.kernels.collide_stream_dma import build_fused_collide_stream_3d_dma as builder
-
-            tile = tile or _auto_tile(
-                shape, vs.q, jnp.dtype(pp.store_dtype).itemsize,
-                aux_np.shape[0] if aux_np is not None else 0,
-            )
-        else:
-            builder = build_fused_collide_stream_3d
-            tile = tile or (16, 8)
-
-        kw = {} if kernel != "dma" else {"logical_z": logical_z}
-        fused = builder(
-            vs,
-            shape,
-            collision=collision,
-            bc_specs=bc_specs,
-            compute_dtype=pp.compute_dtype,
-            store_dtype=pp.store_dtype,
-            tile=tile,
-            interpret=interpret,
-            force_vector=force_vector,
-            **kw,
-        )
-        if z_pad and aux_np is not None:
-            aux_np = np.pad(aux_np, ((0, 0),) * 3 + ((0, z_pad),))
-            aux_dev = jnp.asarray(aux_np)
-
-    # -- differentiability: the fused forward pairs with a FUSED adjoint
-    # sweep when every BC epilogue is voxel-local (kernels/adjoint_step.py:
-    # jax.vjp of the per-voxel physics inside one manual-DMA pass -- ~5x
-    # faster than the jnp-tier VJP), falling back to the jnp tier's VJP
-    # otherwise (same math to f32 roundoff, tests/kernels/test_fused_kernel.py).
-    fused_bwd = None
-    if vs.d == 3 and kernel == "dma":
-        from xlb_tpu.kernels.adjoint_step import build_fused_adjoint_3d
-
-        try:
-            fused_bwd = build_fused_adjoint_3d(
-                vs, shape, collision=collision, bc_specs=bc_specs,
-                compute_dtype=pp.compute_dtype, store_dtype=pp.store_dtype,
-                tile=tile, interpret=interpret,
-                has_solids=getattr(stepper, "has_solids", True),
-                force_vector=force_vector, logical_z=logical_z,
-            )
-        except (NotImplementedError, AssertionError):
-            fused_bwd = None  # unsupported config: jnp-tier VJP below
-
-    def _pad_z(x, value=0):
-        if not z_pad:
-            return x
-        return jnp.pad(x, ((0, 0),) * (x.ndim - 1) + ((0, z_pad),), constant_values=value)
-
-    def _pad_f(x):
-        # pad columns hold the resting equilibrium f = w (NOT zeros): the
-        # solid keep-out discards their physics, but rho = 0 pads would
-        # emit NaNs that poison the omega cotangent through 0 * NaN
-        if not z_pad:
-            return x
-        w_col = jnp.broadcast_to(
-            jnp.asarray(vs._w, x.dtype).reshape((-1,) + (1,) * 3), x.shape[:-1] + (z_pad,)
-        )
-        return jnp.concatenate([x, w_col], axis=-1)
-
-    def _packed_masks(bc_mask, missing_mask):
-        # pad columns are solid keep-out cells (cell-type 255)
-        return pack_masks(_pad_z(bc_mask, 255), _pad_z(missing_mask, False))
+    # grid-shaped aux cannot be pre-sliced for an override shape: the
+    # caller passes the matching slab-shaped aux instead
+    aux_dev = None if (aux_np is None or shape_override is not None) else jnp.asarray(aux_np)
 
     def _jnp_step(f_0, bc_mask, missing_mask, omega):
         _, f_1 = stepper._step_pull(f_0, f_0, bc_mask, missing_mask, omega, 0)
@@ -415,33 +276,17 @@ def build_fused_step(stepper, tile=None, interpret=None, kernel="dma", shape_ove
 
     @jax.custom_vjp
     def fused_core(f_0, bc_mask, missing_mask, omega, aux):
-        mask_i32 = _packed_masks(bc_mask, missing_mask)
-        out = fused(_pad_f(f_0), mask_i32, omega, aux=aux)
-        return out[..., :logical_z] if z_pad else out
+        return fused(f_0, pack_masks(bc_mask, missing_mask), omega, aux=aux)
 
     def _fwd(f_0, bc_mask, missing_mask, omega, aux):
         return fused_core(f_0, bc_mask, missing_mask, omega, aux), (f_0, bc_mask, missing_mask, omega, aux)
 
     def _bwd(res, g):
-        import numpy as _np
-
         f_0, bc_mask, missing_mask, omega, aux = res
-        if fused_bwd is not None:
-            mask_i32 = _packed_masks(bc_mask, missing_mask)
-            df, dom_field = fused_bwd(_pad_f(f_0), _pad_z(g), mask_i32, omega, aux=aux)
-            if z_pad:
-                df = df[..., :logical_z]
-            df = df.astype(f_0.dtype)
-            dom = jnp.sum(dom_field.astype(jnp.float32)).astype(jnp.asarray(omega).dtype)
-        else:
-            _, vjp = jax.vjp(lambda f, om: _jnp_step(f, bc_mask, missing_mask, om), f_0, omega)
-            df, dom = vjp(g)
-
-        def _zero(x):
-            return _np.zeros(_np.shape(x), dtype=jax.dtypes.float0)
-
+        _, vjp = jax.vjp(lambda f, om: _jnp_step(f, bc_mask, missing_mask, om), f_0, omega)
+        df, dom = vjp(g)
         daux = None if aux is None else jnp.zeros_like(aux)
-        return df, _zero(bc_mask), _zero(missing_mask), dom, daux
+        return df, _zero_cotangent(bc_mask), _zero_cotangent(missing_mask), dom, daux
 
     fused_core.defvjp(_fwd, _bwd)
 
@@ -449,198 +294,67 @@ def build_fused_step(stepper, tile=None, interpret=None, kernel="dma", shape_ove
         omega = jnp.asarray(omega, dtype=pp.compute_dtype)
         return f_0, fused_core(f_0, bc_mask, missing_mask, omega, aux_dev if aux is None else aux)
 
-    return step
+    return _stamp(step, fused)
 
 
-def build_fused_ade_step(stepper, tile=None, interpret=None):
-    """PALLAS-tier advection-diffusion step (models/ade.py): one HBM pass
-    of stream + voxel-local BCs + linear-equilibrium BGK relaxation, with
-    the ADVECTING velocity streamed in per tile as d aux channels (it
-    changes every step in coupled flows, so it rides as a kernel ARGUMENT,
-    unlike the build-time aux constants of the NSE step).  Spatial-BC aux
-    channels (profile walls, spatial Dirichlet values), when present,
-    follow at offset d (``aux_layout(base=d)``); non-128-multiple z
-    extents are padded internally exactly like ``build_fused_step``.
-
-    Returns ``(g_0, g_1, bc_mask, missing_mask, omega_phi, u, timestep) ->
-    (g_0, g_1)``.  Forward-only (no custom_vjp) -- differentiate through
-    the jnp tier.
-    """
-    vs = stepper.velocity_set
+def _build_aux_prefixed_step(stepper, block, interpret, **flags):
+    """Shared builder of the ADE and extern-force steps: a per-call field
+    rides aux channels [0:d], the static BC channels follow
+    (``aux_layout(base=d)``).  Forward-only."""
     shape = tuple(stepper.grid.shape)
     pp = stepper.precision_policy
-    bc_specs = [bc_to_spec(bc, vs) for bc in stepper.boundary_conditions]
-    aux_bc_np = build_aux_field(stepper)  # static BC channels, laid after the velocity block
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-
-    z_pad, logical_z = 0, None
-    if vs.d == 2:
-        from xlb_tpu.kernels.collide_stream_2d import build_fused_collide_stream_2d
-
-        fused = build_fused_collide_stream_2d(
-            vs, shape, collision="BGK", bc_specs=bc_specs,
-            compute_dtype=pp.compute_dtype, store_dtype=pp.store_dtype,
-            tile_x=(tile[0] if tile else _auto_tile_x(shape[0])),
-            interpret=interpret, has_solids=getattr(stepper, "has_solids", True), ade=True,
-        )
-    else:
-        from xlb_tpu.kernels.collide_stream_dma import build_fused_collide_stream_3d_dma
-
-        if shape[2] % 128 != 0:
-            # same internal lane padding as build_fused_step: pad columns
-            # are solid keep-out cells, lane rolls wrap at the logical z.
-            # No blocked-kernel ADE variant exists, so interpret mode pays
-            # the pad-lane compute instead of falling back.
-            z_pad = (-shape[2]) % 128
-            logical_z = shape[2]
-            shape = (shape[0], shape[1], shape[2] + z_pad)
-        fused = build_fused_collide_stream_3d_dma(
-            vs, shape, collision="BGK", bc_specs=bc_specs,
-            compute_dtype=pp.compute_dtype, store_dtype=pp.store_dtype,
-            tile=tile or _auto_tile(
-                shape, vs.q, jnp.dtype(pp.store_dtype).itemsize,
-                vs.d + (aux_bc_np.shape[0] if aux_bc_np is not None else 0),
-            ),
-            interpret=interpret,
-            has_solids=getattr(stepper, "has_solids", True), ade=True,
-            logical_z=logical_z,
-        )
-    if z_pad and aux_bc_np is not None:
-        aux_bc_np = np.pad(aux_bc_np, ((0, 0),) * 3 + ((0, z_pad),))
+    fused = _build_kernel(stepper, shape, block, interpret, **flags)
+    aux_bc_np = build_aux_field(stepper)
     aux_bc_dev = None if aux_bc_np is None else jnp.asarray(aux_bc_np)
 
-    def _pad_z(x, value=0):
-        if not z_pad:
-            return x
-        return jnp.pad(x, ((0, 0),) * (x.ndim - 1) + ((0, z_pad),), constant_values=value)
-
-    def _pad_g(x):
-        # resting-equilibrium pad columns (g = w, i.e. phi = 1, u = 0):
-        # inert under the solid keep-out, NaN-free under recompute
-        if not z_pad:
-            return x
-        w_col = jnp.broadcast_to(
-            jnp.asarray(vs._w, x.dtype).reshape((-1,) + (1,) * 3), x.shape[:-1] + (z_pad,)
-        )
-        return jnp.concatenate([x, w_col], axis=-1)
-
-    def step(g_0, g_1, bc_mask, missing_mask, omega_phi, u, timestep=0):
-        mask_i32 = pack_masks(_pad_z(bc_mask, 255), _pad_z(missing_mask, False))
-        omega_c = jnp.asarray(omega_phi, dtype=pp.compute_dtype)
-        aux = _pad_z(u.astype(jnp.float32))
+    def step(f_0, f_1, bc_mask, missing_mask, omega, field, timestep=0):
+        aux = field.astype(jnp.float32)
         if aux_bc_dev is not None:
             aux = jnp.concatenate([aux, aux_bc_dev], axis=0)
-        out = fused(_pad_g(g_0), mask_i32, omega_c, aux=aux)
-        return g_0, (out[..., :logical_z] if z_pad else out)
+        omega_c = jnp.asarray(omega, dtype=pp.compute_dtype)
+        return f_0, fused(f_0, pack_masks(bc_mask, missing_mask), omega_c, aux=aux)
 
-    return step
+    return _stamp(step, fused)
 
 
-def build_fused_forced_step(stepper, tile=None, interpret=None):
+def build_fused_ade_step(stepper, block=None, interpret=None):
+    """PALLAS-tier advection-diffusion step (models/ade.py): one pass of
+    stream + voxel-local BCs + linear-equilibrium BGK relaxation, with the
+    ADVECTING velocity read per cell as d aux channels (it changes every
+    step in coupled flows, so it is a kernel argument).
+
+    Returns ``(g_0, g_1, bc_mask, missing_mask, omega_phi, u, timestep) ->
+    (g_0, g_1)``.  Forward-only (differentiate through the jnp tier).
+    """
+    return _build_aux_prefixed_step(stepper, block, interpret, collision="BGK", ade=True)
+
+
+def build_fused_forced_step(stepper, block=None, interpret=None):
     """PALLAS-tier NSE step with a PER-VOXEL exact-difference force field
-    (the field generalization of the static ``force_vector``): one HBM
-    pass with the (d, *shape) force streamed in per tile as aux channels.
-    Used by the Boussinesq thermal coupling (models/ade.py), where the
-    buoyancy changes every step.
-
-    Composes with spatial-BC aux channels (profile inlets, hybrid mesh
-    distances): the force rides channels [0:d] and the BC channels follow
-    at offset d (``aux_layout(base=d)``), so e.g. Rayleigh-Benard with a
-    curved obstacle runs fused.
+    (the field generalization of the static ``force_vector``), read per
+    cell as d aux channels.  Used by the Boussinesq thermal coupling
+    (models/ade.py) and Shan-Chen multiphase, where the force changes
+    every step.
 
     Returns ``(f_0, f_1, bc_mask, missing_mask, omega, force_field,
     timestep) -> (f_0, f_1)``.  Forward-only (differentiate through the
     jnp tier).
     """
-    vs = stepper.velocity_set
-    shape = tuple(stepper.grid.shape)
-    pp = stepper.precision_policy
-    bc_specs = [bc_to_spec(bc, vs) for bc in stepper.boundary_conditions]
     if stepper_force_vector(stepper) is not None:
         raise NotImplementedError("use either a static force_vector or the per-voxel force field, not both")
-    aux_bc_np = build_aux_field(stepper)  # static BC channels, laid after the force block
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-
-    z_pad, logical_z = 0, None
-    if vs.d == 2:
-        from xlb_tpu.kernels.collide_stream_2d import build_fused_collide_stream_2d
-
-        fused = build_fused_collide_stream_2d(
-            vs, shape, collision=kernel_collision_spec(stepper), bc_specs=bc_specs,
-            compute_dtype=pp.compute_dtype, store_dtype=pp.store_dtype,
-            tile_x=(tile[0] if tile else _auto_tile_x(shape[0])),
-            interpret=interpret, has_solids=getattr(stepper, "has_solids", True), extern_force=True,
-        )
-    else:
-        from xlb_tpu.kernels.collide_stream_dma import build_fused_collide_stream_3d_dma
-
-        if shape[2] % 128 != 0:
-            # same internal lane padding as build_fused_step (no blocked
-            # extern-force kernel variant, so interpret mode pads too)
-            z_pad = (-shape[2]) % 128
-            logical_z = shape[2]
-            shape = (shape[0], shape[1], shape[2] + z_pad)
-        fused = build_fused_collide_stream_3d_dma(
-            vs, shape, collision=kernel_collision_spec(stepper), bc_specs=bc_specs,
-            compute_dtype=pp.compute_dtype, store_dtype=pp.store_dtype,
-            tile=tile or _auto_tile(
-                shape, vs.q, jnp.dtype(pp.store_dtype).itemsize,
-                vs.d + (aux_bc_np.shape[0] if aux_bc_np is not None else 0),
-            ),
-            interpret=interpret,
-            has_solids=getattr(stepper, "has_solids", True), extern_force=True,
-            logical_z=logical_z,
-        )
-    if z_pad and aux_bc_np is not None:
-        aux_bc_np = np.pad(aux_bc_np, ((0, 0),) * 3 + ((0, z_pad),))
-    aux_bc_dev = None if aux_bc_np is None else jnp.asarray(aux_bc_np)
-
-    def _pad_z(x, value=0):
-        if not z_pad:
-            return x
-        return jnp.pad(x, ((0, 0),) * (x.ndim - 1) + ((0, z_pad),), constant_values=value)
-
-    def _pad_f(x):
-        # resting-equilibrium pad columns (see build_fused_step._pad_f)
-        if not z_pad:
-            return x
-        w_col = jnp.broadcast_to(
-            jnp.asarray(vs._w, x.dtype).reshape((-1,) + (1,) * 3), x.shape[:-1] + (z_pad,)
-        )
-        return jnp.concatenate([x, w_col], axis=-1)
-
-    def step(f_0, f_1, bc_mask, missing_mask, omega, force_field, timestep=0):
-        mask_i32 = pack_masks(_pad_z(bc_mask, 255), _pad_z(missing_mask, False))
-        omega_c = jnp.asarray(omega, dtype=pp.compute_dtype)
-        aux = _pad_z(force_field.astype(jnp.float32))
-        if aux_bc_dev is not None:
-            aux = jnp.concatenate([aux, aux_bc_dev], axis=0)
-        out = fused(_pad_f(f_0), mask_i32, omega_c, aux=aux)
-        return f_0, (out[..., :logical_z] if z_pad else out)
-
-    return step
+    return _build_aux_prefixed_step(stepper, block, interpret, extern_force=True)
 
 
-def build_fused_window(stepper, num_steps, tile=None, interpret=None, kernel="dma", shifted=None, two_step=None, temporal_steps=None, shape_override=None, donate=False, io_form="plain", pre_packed=False):
+def build_fused_window(stepper, num_steps, block=None, interpret=None, shifted=None, shape_override=None, donate=False, io_form="plain", pre_packed=False):
     """A jitted ``num_steps``-window of the fused step with optional
     deviation-form (shifted) storage between steps.
 
     With ``shifted=True`` (default when the storage dtype is 16-bit), the
-    populations live in HBM as g = f - w for the duration of the window --
-    16-bit storage then resolves the physically-varying deviations instead
-    of quantizing them against the O(1) lattice weights -- and are converted
-    back at the window boundary (two cheap elementwise passes per window).
-
-    ``temporal_steps`` (k) routes groups of k steps through the temporally
-    blocked kernel (collide_stream_2step.py) -- k LBM steps per HBM pass,
-    matching k single-step passes to store-dtype roundoff; the
-    ``num_steps % k`` remainder runs single steps.  Default: k=2, falling
-    back to smaller k if the VMEM working set overflows
-    (``two_step=True/False`` forces k=2 / k=1 for compatibility).  Deeper
-    blocking cuts HBM traffic ~1/k but the kernel is compute-bound past
-    k=2 on v5e (docs/performance.md has the k sweep).
+    populations live in device memory as g = f - w for the duration of the
+    window -- 16-bit storage then resolves the physically-varying
+    deviations instead of quantizing them against the O(1) lattice weights
+    -- and are converted back at the window boundary (two cheap
+    elementwise passes per window).
 
     Returns ``run(f_0, f_1, bc_mask, missing_mask, omega) -> (f_0, f_1)``
     in plain (unshifted) form.  When shifted, the returned field is in the
@@ -660,11 +374,16 @@ def build_fused_window(stepper, num_steps, tile=None, interpret=None, kernel="dm
     ``pre_packed=True``: ``run``'s bc_mask operand is the ALREADY-PACKED
     int32 mask (pack_masks) and missing_mask is ignored (pass None).  The
     out-of-core sweep streams one int32 plane instead of uint8 + q bools
-    -- 4 bytes/cell over the host link instead of 1 + q (ooc.py packs
-    once at prepare time; masks are static).
+    -- 4 bytes/cell over the host link instead of 1 + q.  Such windows are
+    forward-only.
+
+    ``shape_override`` runs the window on a different (static) domain
+    shape than the stepper's grid -- e.g. an out-of-core padded slab; the
+    caller then passes the slab's aux at run time (``run(..., aux=...)``).
     """
     vs = stepper.velocity_set
     pp = stepper.precision_policy
+    cdt = pp.compute_dtype
     if shifted is None:
         shifted = jnp.dtype(pp.store_dtype).itemsize < 4
     if io_form not in ("plain", "shifted"):
@@ -673,244 +392,74 @@ def build_fused_window(stepper, num_steps, tile=None, interpret=None, kernel="dm
     if io_shifted and not shifted:
         raise ValueError("io_form='shifted' requires deviation-form (16-bit) storage")
     convert = shifted and not io_shifted  # window-boundary plain <-> deviation passes
-    has_solids = getattr(stepper, "has_solids", True)
-    force_vector = stepper_force_vector(stepper)
+    shape = tuple(shape_override) if shape_override is not None else tuple(stepper.grid.shape)
+    fused = _build_kernel(
+        stepper, shape, block, interpret, shifted=shifted, force_vector=stepper_force_vector(stepper)
+    )
     aux_np = build_aux_field(stepper)
-    # grid-shaped aux cannot be pre-sliced for an override shape (e.g. an
-    # out-of-core padded slab): the caller passes the matching slab-shaped
-    # aux at run time instead (``run(..., aux=slab_aux)``; ooc.py streams
-    # it as one more tiled operand)
-    extern_aux = shape_override is not None and aux_np is not None
-    aux_dev = None if (aux_np is None or extern_aux) else jnp.asarray(aux_np)
-
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    bc_specs = [bc_to_spec(bc, vs) for bc in stepper.boundary_conditions]
-    # shape_override runs the window on a different (static) domain shape
-    # than the stepper's grid -- e.g. an out-of-core padded slab (ooc.py)
-    shape = tuple(shape_override) if shape_override is not None else stepper.grid.shape
-
-    fused2 = None
-    z_pad, logical_z = 0, None
-    if vs.d == 2:
-        from xlb_tpu.kernels.collide_stream_2d import (
-            build_fused_collide_stream_2d,
-            build_fused_collide_stream_2d_kstep,
-        )
-
-        kw2 = dict(
-            collision=kernel_collision_spec(stepper), bc_specs=bc_specs,
-            compute_dtype=pp.compute_dtype, store_dtype=pp.store_dtype,
-            tile_x=(tile[0] if tile else _auto_tile_x(shape[0])), interpret=interpret, shifted=shifted,
-            has_solids=has_solids, force_vector=force_vector,
-        )
-        fused = build_fused_collide_stream_2d(vs, shape, **kw2)
-        if temporal_steps is None:
-            if two_step is not None:
-                temporal_steps = 2 if two_step else 1
-            else:
-                # 2D blocking is nearly free (same fetch as one step);
-                # k=8 measures best on v5e at 2048^2 (docs/performance.md)
-                temporal_steps = 8
-        if temporal_steps >= 2 and num_steps >= 2:
-            try:
-                fused2 = build_fused_collide_stream_2d_kstep(vs, shape, steps=temporal_steps, **kw2)
-            except (NotImplementedError, AssertionError, ValueError) as e:
-                notify_fallback(f"fused 2D window: temporal blocking unavailable ({e}); running single steps")
-                fused2 = None
-    else:
-        if kernel == "dma" and shape[2] % 128 != 0:
-            if shape_override is None and not interpret:
-                # internal z padding (solid pad columns + logical-extent
-                # lane rolls, collide_stream._roll_lane): keeps the manual
-                # DMA kernel AND temporal blocking for any z extent; see
-                # the build_fused_step twin above for the interpret gate
-                z_pad = (-shape[2]) % 128
-                logical_z = shape[2]
-                shape = (shape[0], shape[1], shape[2] + z_pad)
-            else:
-                notify_fallback(
-                    f"fused window: z extent {shape[2]} is not a 128-multiple; using the "
-                    "block-mapped kernel (no temporal blocking) instead of the manual-DMA kernel"
-                )
-                kernel = "blocked"
-        if kernel == "dma":
-            from xlb_tpu.kernels.collide_stream_dma import build_fused_collide_stream_3d_dma as builder
-        else:
-            builder = build_fused_collide_stream_3d
-        tile = tile or (
-            _auto_tile(
-                shape, vs.q, jnp.dtype(pp.store_dtype).itemsize,
-                aux_np.shape[0] if aux_np is not None else 0,
-            )
-            if kernel == "dma"
-            else (16, 8)
-        )
-        kwz = {} if kernel != "dma" else {"logical_z": logical_z}
-        fused = builder(
-            vs, shape, collision=kernel_collision_spec(stepper), bc_specs=bc_specs,
-            compute_dtype=pp.compute_dtype, store_dtype=pp.store_dtype,
-            tile=tile, interpret=interpret, shifted=shifted, has_solids=has_solids,
-            force_vector=force_vector, **kwz,
-        )
-        if z_pad and aux_np is not None:
-            aux_np = np.pad(aux_np, ((0, 0),) * 3 + ((0, z_pad),))
-            aux_dev = jnp.asarray(aux_np)
-        if temporal_steps is None:
-            if two_step is not None:
-                temporal_steps = 2 if two_step else 1
-            else:
-                # auto: k=2. Deeper blocking cuts HBM traffic further but the
-                # kernel is compute-bound past k=2 on v5e (halo recompute grows
-                # with k): measured 5750/5164/5058 MLUPS at k=2/3/4, 256^3
-                # bf16 tile (8,64).  Callers with expensive exchanges (DCN)
-                # can ask for more.
-                temporal_steps = 2
-        eligible = (
-            kernel == "dma"
-            and num_steps >= 2
-            and shape[0] % tile[0] == 0
-            and shape[1] % tile[1] == 0
-        )
-        if eligible and temporal_steps >= 2:
-            from xlb_tpu.kernels.collide_stream_2step import build_fused_collide_stream_3d_kstep
-
-            for k in range(min(temporal_steps, num_steps, tile[0], 8), 1, -1):
-                try:
-                    fused2 = build_fused_collide_stream_3d_kstep(
-                        vs, shape, collision=kernel_collision_spec(stepper), bc_specs=bc_specs,
-                        compute_dtype=pp.compute_dtype, store_dtype=pp.store_dtype,
-                        tile=tile, steps=k, interpret=interpret, shifted=shifted,
-                        has_solids=has_solids, force_vector=force_vector,
-                        logical_z=logical_z,
-                    )
-                    temporal_steps = k
-                    break
-                except ValueError:  # VMEM working set too large at this k
-                    continue
-            if fused2 is None:
-                notify_fallback(
-                    f"fused window: temporal blocking (k={temporal_steps}) exceeds the VMEM "
-                    f"budget at tile {tile}; running single steps"
-                )
-
-    w_shift = vs._w.reshape((vs.q,) + (1,) * vs.d).astype(np.dtype(pp.store_dtype))
-
-    # -- differentiability: the whole window reverses through the fused
-    # Pallas adjoint (kernels/adjoint_step.py) when the config is
-    # adjoint-eligible.  The backward checkpoints only the window INPUT,
-    # replays the forward with the single-step kernel while stacking the
-    # per-step states (store dtype), then scans the fused adjoint in
-    # reverse -- ~2 forward passes + 1 backward, all inside one jit.
-    # Memory is num_steps x field; differentiate long rollouts by chaining
-    # moderate windows under jax.checkpoint.
-    win_bwd = None
-    if vs.d == 3 and kernel == "dma":
-        from xlb_tpu.kernels.adjoint_step import build_fused_adjoint_3d
-
-        try:
-            win_bwd = build_fused_adjoint_3d(
-                vs, shape, collision=kernel_collision_spec(stepper), bc_specs=bc_specs,
-                compute_dtype=pp.compute_dtype, store_dtype=pp.store_dtype,
-                tile=tile, interpret=interpret, has_solids=has_solids,
-                force_vector=force_vector, shifted=shifted, logical_z=logical_z,
-            )
-        except (NotImplementedError, AssertionError):
-            win_bwd = None  # unsupported config: window stays forward-only
+    aux_dev = None if (aux_np is None or shape_override is not None) else jnp.asarray(aux_np)
+    # the kernel shifts by the compute-dtype weights, so the window
+    # boundary must too (16-bit-rounded weights would leave their rounding
+    # error in every population)
+    w_c = vs._w.reshape((vs.q,) + (1,) * vs.d).astype(np.dtype(cdt))
 
     def _value(f_0, mask_i32, omega_c, aux):
-        g = (f_0.astype(pp.compute_dtype) - w_shift).astype(pp.store_dtype) if convert else f_0
-        if fused2 is not None:
-            k = temporal_steps
-            g = jax.lax.fori_loop(0, num_steps // k, lambda i, g: fused2(g, mask_i32, omega_c, aux=aux), g)
-            for _ in range(num_steps % k):
-                g = fused(g, mask_i32, omega_c, aux=aux)
-        else:
-            g = jax.lax.fori_loop(0, num_steps, lambda i, g: fused(g, mask_i32, omega_c, aux=aux), g)
-        return g.astype(pp.compute_dtype) + w_shift.astype(pp.compute_dtype) if convert else g
+        g = (f_0.astype(cdt) - w_c).astype(pp.store_dtype) if convert else f_0
 
-    if win_bwd is None:
-        _window = _value
-    else:
+        # two steps per iteration over a ping-pong pair: each step writes
+        # the buffer the previous one read, so the loop carry needs no copy
+        # (one carried buffer costs a full device-to-device copy per step)
+        def two_steps(i, carry):
+            a, _ = carry
+            b = fused(a, mask_i32, omega_c, aux=aux)
+            return fused(b, mask_i32, omega_c, aux=aux), b
 
-        @jax.custom_vjp
-        def _window(f_0, mask_i32, omega_c, aux):
-            return _value(f_0, mask_i32, omega_c, aux)
+        g, _ = jax.lax.fori_loop(0, num_steps // 2, two_steps, (g, g))
+        if num_steps % 2:
+            g = fused(g, mask_i32, omega_c, aux=aux)
+        return g.astype(cdt) + w_c if convert else g
 
-        def _w_fwd(f_0, mask_i32, omega_c, aux):
-            return _value(f_0, mask_i32, omega_c, aux), (f_0, mask_i32, omega_c, aux)
+    def _jnp_window(f_0, bc_mask, missing_mask, omega_c):
+        """The same window on the jnp tier (the backward pass's oracle)."""
+        f = (f_0.astype(cdt) + w_c if io_shifted else f_0).astype(pp.store_dtype)
 
-        def _w_bwd(res, gbar):
-            import numpy as _np
+        def body(i, a):
+            return stepper._step_pull(a, a, bc_mask, missing_mask, omega_c, i)[1]
 
-            f_0, mask_i32, omega_c, aux = res
-            g0 = (f_0.astype(pp.compute_dtype) - w_shift).astype(pp.store_dtype) if convert else f_0
+        f = jax.lax.fori_loop(0, num_steps, body, f)
+        if io_shifted:
+            return (f.astype(cdt) - w_c).astype(pp.store_dtype)
+        return f.astype(cdt) if convert else f
 
-            def fwd_scan(gc, _):
-                return fused(gc, mask_i32, omega_c, aux=aux), gc
+    @jax.custom_vjp
+    def _window(f_0, bc_mask, missing_mask, omega_c, aux):
+        mask_i32 = bc_mask if pre_packed else pack_masks(bc_mask, missing_mask)
+        return _value(f_0, mask_i32, omega_c, aux)
 
-            _, states = jax.lax.scan(fwd_scan, g0, None, length=num_steps)
+    def _w_fwd(f_0, bc_mask, missing_mask, omega_c, aux):
+        return _window(f_0, bc_mask, missing_mask, omega_c, aux), (f_0, bc_mask, missing_mask, omega_c, aux)
 
-            def bwd_scan(carry, g_primal):
-                ct, dom_acc = carry
-                df, dom_field = win_bwd(g_primal, ct, mask_i32, omega_c, aux=aux)
-                return (df, dom_acc + jnp.sum(dom_field.astype(pp.compute_dtype))), None
+    def _w_bwd(res, gbar):
+        f_0, bc_mask, missing_mask, omega_c, aux = res
+        if pre_packed:
+            raise NotImplementedError("pre-packed (out-of-core) windows are forward-only")
+        _, vjp = jax.vjp(lambda f, om: _jnp_window(f, bc_mask, missing_mask, om), f_0, omega_c)
+        df, dom = vjp(gbar)
+        daux = None if aux is None else jnp.zeros_like(aux)
+        return df, _zero_cotangent(bc_mask), _zero_cotangent(missing_mask), dom, daux
 
-            ct0 = gbar.astype(pp.compute_dtype)
-            (df0, dom), _ = jax.lax.scan(
-                bwd_scan, (ct0, jnp.zeros((), pp.compute_dtype)), states, reverse=True
-            )
-
-            def _zero(x):
-                return _np.zeros(_np.shape(x), dtype=jax.dtypes.float0)
-
-            daux = None if aux is None else jnp.zeros_like(aux)
-            return df0.astype(f_0.dtype), _zero(mask_i32), dom.astype(omega_c.dtype), daux
-
-        _window.defvjp(_w_fwd, _w_bwd)
+    _window.defvjp(_w_fwd, _w_bwd)
 
     # donate=True frees the caller's population buffers for reuse inside
-    # the window -- required headroom for domains near the HBM limit
+    # the window -- required headroom for domains near the memory limit
     # (callers must then treat their f_0/f_1 as consumed)
-    def _pad_z(x, value=0):
-        if not z_pad:
-            return x
-        return jnp.pad(x, ((0, 0),) * (x.ndim - 1) + ((0, z_pad),), constant_values=value)
-
-    def _pad_f(x):
-        # resting-equilibrium pad columns (f = w): inert under the solid
-        # keep-out, NaN-free under collision recompute and the adjoint,
-        # and exactly g = 0 in deviation-form storage
-        if not z_pad:
-            return x
-        if io_shifted:  # input is already deviation-form: pad g = 0
-            return _pad_z(x)
-        w_col = jnp.broadcast_to(
-            jnp.asarray(vs._w, x.dtype).reshape((-1,) + (1,) * 3), x.shape[:-1] + (z_pad,)
-        )
-        return jnp.concatenate([x, w_col], axis=-1)
-
-    # packed value of a solid pad cell (bc 255, no missing bits), for the
-    # pre-packed path's z padding; int32 wrap covers the q=27 high-bit id
-    from xlb_tpu.kernels.collide_stream import bc_id_shift
-
-    _packed_solid = int(np.int32(np.uint32(((31 if vs.q > 19 else 255) << bc_id_shift(vs.q)) & 0xFFFFFFFF)))
-
     @partial(jax.jit, donate_argnums=(0, 1) if donate else ())
     def _run(f_0, f_1, bc_mask, missing_mask, omega, aux):
-        # internal z padding: pad once per window, crop once (pad columns
-        # are solid keep-out cells; lane rolls wrap at the logical extent)
-        if pre_packed:
-            mask_i32 = _pad_z(bc_mask, _packed_solid)
-        else:
-            mask_i32 = pack_masks(_pad_z(bc_mask, 255), _pad_z(missing_mask, False))
-        omega_c = jnp.asarray(omega, dtype=pp.compute_dtype)
-        f_out = _window(_pad_f(f_0), mask_i32, omega_c, aux)
-        if z_pad:
-            f_out = f_out[..., :logical_z]
+        omega_c = jnp.asarray(omega, dtype=cdt)
+        f_out = _window(f_0, bc_mask, missing_mask, omega_c, aux)
         return f_out, f_out
 
     def run(f_0, f_1, bc_mask, missing_mask, omega, aux=None):
         return _run(f_0, f_1, bc_mask, missing_mask, omega, aux_dev if aux is None else aux)
 
-    return run
+    return _stamp(run, fused)

@@ -1,7 +1,7 @@
 """Advection-diffusion (ADE) stepper and Boussinesq-coupled thermal flow.
 
 The reference declares ``PhysicsType.ADE`` but ships no solver
-(xlb/physics_type.py:6-8); this module is the TPU-native upgrade: a
+(xlb/physics_type.py:6-8); this module supplies one: a
 scalar field phi carried by a second distribution set g on the SAME
 velocity set, advected by a prescribed (or NSE-coupled) velocity field
 with the standard linear equilibrium geq_l = w_l phi (1 + 3 c_l . u).

@@ -1,6 +1,6 @@
 """Immersed-boundary-method stepper (multi-direct forcing).
 
-TPU-native counterpart of the reference IBMStepper
+Counterpart of the reference IBMStepper
 (xlb/operator/stepper/ibm_stepper.py:14-476, Warp-only there).  The same
 velocity-based partition-of-unity formulation is used:
 
@@ -8,17 +8,15 @@ velocity-based partition-of-unity formulation is used:
     correction[i] = relax * (target_u[i] - u[i])
     F_k          += U_solid_k - u_interp(X_k)            (marker update)
 
-with the Peskin 4-point regularized delta as w.  Design differences for TPU:
+with the Peskin 4-point regularized delta as w.  Design:
 
-- The Peskin delta is separable, w_ik = phi(i-x_k) phi(j-y_k) phi(k-z_k),
-  so marker<->grid transfer factors into per-axis weight matrices
-  A (Lx, n), B (Ly, n), C (Lz, n) and the spread/interpolation become
-  chunked DENSE einsums that run on the MXU -- no scatter at all.  XLA's
-  scatter-add lowers to a serialized per-update loop on TPU (measured
-  ~70 ms per spread for 1.3M updates, ~54 ns each); the dense factored
-  contraction does ~5000x more FLOPs and still wins by >25x because the
-  MXU sustains tens of TFLOP/s (the reference leans on CUDA atomics +
-  a wp.HashGrid for the same reason, ibm_stepper.py:110).
+- Two marker<->grid transfer forms.  ``scatter``: scatter-add spread and
+  gather interpolation over each marker's 64-cell support.  ``dense``: the
+  Peskin delta is separable, w_ik = phi(i-x_k) phi(j-y_k) phi(k-z_k), so
+  the transfer factors into per-axis weight matrices A (Lx, n), B (Ly, n),
+  C (Lz, n) and the spread/interpolation become chunked dense einsums at
+  ``Precision.HIGHEST`` -- no scatter at all.  ``"auto"`` picks scatter,
+  the faster form on both the GPU and the CPU.
 - An optional static marker WINDOW (``ibm_window``) restricts the dense
   transfer (and the population correction) to the moving AABB around the
   markers: static extents, dynamic offset from min(positions), so rigid
@@ -79,7 +77,7 @@ def _marker_stencil(positions, shape):
 
 
 def _spread_to_grid_scatter(values, positions, areas, shape):
-    """Scatter-add oracle (slow on TPU; parity reference only)."""
+    """Scatter-add spread over each marker's 4x4x4 support."""
     lin, w = _marker_stencil(positions, shape)
     ncells = int(np.prod(shape))
     wa = w * areas[:, None]  # (n, 64)
@@ -90,7 +88,7 @@ def _spread_to_grid_scatter(values, positions, areas, shape):
 
 
 def _interpolate_from_grid_gather(field_flat, positions, shape):
-    """Gather oracle for the factored interpolation (parity reference)."""
+    """Gather interpolation over each marker's 4x4x4 support."""
     lin, w = _marker_stencil(positions, shape)
     vals = field_flat[lin]  # (n, 64, c)
     num = jnp.sum(w[..., None] * vals, axis=1)
@@ -117,7 +115,7 @@ def spread_to_grid_window(values, positions, areas, window_shape, offset=(0, 0, 
     """sum_k w_ik A_k value_k and sum_k w_ik over a dense grid window.
 
     Factored-Peskin spread: per-axis weight matrices contracted by chunked
-    einsums (MXU), no scatter.  ``offset`` (static or traced ints) places
+    einsums, no scatter.  ``offset`` (static or traced ints) places
     the window in grid coordinates.  Returns ``num (Lx, Ly, Lz, c)`` and
     ``den (Lx, Ly, Lz)``.  Markers whose 4-point support leaves the window
     simply truncate (identical to the no-wrap clamp of the scatter oracle
@@ -197,11 +195,9 @@ class IBMStepper(IncompressibleNavierStokesStepper):
     The window must contain every marker's 4-point support (extent >=
     marker AABB + 4); with ``None`` the full domain is the window.
 
-    ``ibm_transfer``: ``"dense"`` (factored-Peskin MXU einsums),
-    ``"scatter"`` (scatter-add/gather, the oracle), or ``"auto"``
-    (default): dense on accelerators -- TPU scatter serializes per update
-    -- and scatter on CPU, where dense FLOPs have no MXU to run on and
-    scatter is cheap.
+    ``ibm_transfer``: ``"dense"`` (factored-Peskin einsums), ``"scatter"``
+    (scatter-add/gather), or ``"auto"`` (default: scatter, measured the
+    faster form on the GPU and the CPU).
     """
 
     def __init__(
@@ -225,7 +221,10 @@ class IBMStepper(IncompressibleNavierStokesStepper):
         self.ibm_window = ibm_window
         assert ibm_transfer in ("auto", "dense", "scatter")
         if ibm_transfer == "auto":
-            ibm_transfer = "scatter" if jax.default_backend() == "cpu" else "dense"
+            # scatter measured 5.3x faster than dense on the H100 at the
+            # flow_past_sphere_ibm size (PERF.md), and is the faster form on
+            # the CPU too
+            ibm_transfer = "scatter"
         self.ibm_transfer = ibm_transfer
 
     def _window_offset(self, vertices):

@@ -1,6 +1,6 @@
 """Multi-resolution incompressible Navier-Stokes stepper.
 
-TPU-native counterpart of the reference's Neon-only
+Dense counterpart of the reference's Neon-only
 MultiresIncompressibleNavierStokesStepper (nse_multires_stepper.py:102-1193)
 and MultiresSimulationManager (helper/simulation_manager.py:16-245).
 
@@ -33,8 +33,6 @@ Per-level relaxation follows the reference's acoustic scaling exactly
     omega_L = 2^(L+1) * omega_0 / ((2^L - 1) * omega_0 + 2)
 """
 
-from functools import partial
-
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -58,41 +56,8 @@ def compute_omega(omega_finest, level):
     return 2.0 ** (level + 1) * w0 / ((2.0**level - 1.0) * w0 + 2.0)
 
 
-_TILE_XS = (8, 10, 12, 14, 16, 20, 24, 28, 32)
-_TILE_YS = (8, 16, 24, 32)
-
-
-def _rank_tiles(fx, fy):
-    """Rank (tile, aux_x, aux_y) kernel-tile candidates by modeled HBM
-    traffic: ring/pad area inflation x the thin-piece fetch's per-tile read
-    amplification ((TX+4)(TY+16)/(TX*TY)).  ``fx(TX)``/``fy(TY)`` return
-    ``(aux, area)`` -- aux is the builder's ring or pad width (None where
-    unused), area the extended-over-base extent ratio -- or None when no
-    ring/pad fits that tile.  Shared by every CTS kernel builder so the
-    tile set and cost model stay in one place."""
-    cands = []
-    for TX in _TILE_XS:
-        rx = fx(TX)
-        if rx is None:
-            continue
-        for TY in _TILE_YS:
-            ry = fy(TY)
-            if ry is None:
-                continue
-            amp = (TX + 4) * (TY + 16) / (TX * TY)
-            cands.append((rx[1] * ry[1] * amp, (TX, TY), rx[0], ry[0]))
-    return [(t, ax, ay) for _, t, ax, ay in sorted(cands, key=lambda c: c[0])]
-
-
-def _coalesce_capable(tile, gx, gy):
-    """Whether a (tile, ring) candidate supports the in-kernel 2x2 x/y
-    coalescence side output: even rings keep fine-cell pairs aligned to
-    ext pairs, and the lane tile must hold whole 16-lane sum groups."""
-    return gx is not None and gy is not None and gx % 2 == 0 and gy % 2 == 0 and tile[1] % 16 == 0
-
-
 class MultiresIncompressibleNavierStokesStepper(Operator):
-    """Dense multi-level LBM stepper.
+    """Dense multi-level LBM stepper on the jnp tier.
 
     Parameters
     ----------
@@ -100,6 +65,10 @@ class MultiresIncompressibleNavierStokesStepper(Operator):
     boundary_conditions : dict level -> list of BCs (or list, applied to the
         coarsest level only -- where domain walls live).
     collision_type : str
+    mres_perf_opt : MresPerfOptimizationType, optional
+        Only ``NAIVE_COLLIDE_STREAM`` (the default): every level runs the
+        jnp tier, left to XLA.  Under a device mesh, shard the per-level
+        fields' x/y axes and GSPMD partitions the step.
     """
 
     def __init__(
@@ -108,8 +77,6 @@ class MultiresIncompressibleNavierStokesStepper(Operator):
         boundary_conditions=None,
         collision_type="BGK",
         mres_perf_opt=None,
-        mesh=None,
-        mesh_axes=("x", "y"),
         velocity_set=None,
         precision_policy=None,
         compute_backend=None,
@@ -117,29 +84,8 @@ class MultiresIncompressibleNavierStokesStepper(Operator):
         super().__init__(velocity_set, precision_policy, compute_backend)
         self.grid = grid
         self.collision_type = collision_type
-        # multi-chip: a jax.sharding.Mesh whose ``mesh_axes`` axes shard the
-        # x/y dimensions of every level.  The jnp tier needs nothing (GSPMD
-        # partitions it from the input shardings alone); the fused kernels
-        # are wrapped in shard_map islands with ppermute halo exchange
-        # (parallel/multires_distribute.py).
-        self._mesh_axes = tuple(mesh_axes)
-        self._mesh = None
-        if mesh is not None and any(mesh.shape[a] > 1 for a in self._mesh_axes):
-            if grid.dim == 3:
-                self._mesh = mesh
-            else:
-                from xlb_tpu.utils.tiers import notify_fallback
-
-                notify_fallback(
-                    "multires fused tier is 3-D only; 2-D multi-chip runs use the GSPMD jnp tier"
-                )
         common = dict(velocity_set=self.velocity_set, precision_policy=self.precision_policy, compute_backend=self.compute_backend)
         self.collision = _COLLISIONS[collision_type](**common)
-        # collision argument for the fused kernel builders (carries operator
-        # params -- TRT magic, MRT projectors -- alongside the type string)
-        from xlb_tpu.kernels.collide_stream import kernel_collision_spec
-
-        self._kernel_collision = kernel_collision_spec(self)
         self.equilibrium = QuadraticEquilibrium(**common)
         self.macroscopic = Macroscopic(**common)
 
@@ -154,596 +100,28 @@ class MultiresIncompressibleNavierStokesStepper(Operator):
             if lvl.origin_in_parent is not None:
                 self._ghost_gather[l] = self._build_ghost_gather(l)
 
-        # ---- performance strategy (reference MresPerfOptimizationType /
-        # nse_multires_stepper.py:583-1110).  FUSION_AT_FINEST routes the
-        # finest level's collide phase through the fused Pallas collide
-        # kernel (one HBM round trip instead of ~q XLA passes); the SFV
-        # variants extend it to every level -- the Neon sparse-fluid-voxel
-        # fast paths themselves are subsumed by the dense design.
         from xlb_tpu.mres_perf_optimization_type import MresPerfOptimizationType
 
         if mres_perf_opt is None:
             mres_perf_opt = MresPerfOptimizationType.NAIVE_COLLIDE_STREAM
+        if mres_perf_opt != MresPerfOptimizationType.NAIVE_COLLIDE_STREAM:
+            raise ValueError(
+                f"{mres_perf_opt} selected the fused multires Pallas kernels, which were removed; "
+                "multires runs its jnp tier on every level: use "
+                "MresPerfOptimizationType.NAIVE_COLLIDE_STREAM (the default)"
+            )
         self.mres_perf_opt = mres_perf_opt
-        self._fused_collide = [None] * grid.num_levels
-        self._cts = None  # fused collide-then-stream kernel for the finest level
-        self._cts_ring = (1, 1, 1)  # per-axis ghost-ring widths of the ext array
-        self._cts_shifted = False  # deviation-form (g = f - w) storage in the kernel path
-        self._cts_coarse = None  # fused single-sub-step kernel for the coarsest level
-        self._cts_mid = [None] * grid.num_levels  # fused sub-step kernels for middle levels
-        self._mid_ring = [None] * grid.num_levels
-        self._mid_persist = [False] * grid.num_levels
-        self._mid_coalesce = [False] * grid.num_levels
-        self._pending_mid_avg = {}  # level -> out2 of its last kernel pass (same-trace stash)
-        self._coarse_fused_ok = None  # lazy host-side BC-placement gate
-        self.active_finest_tier = "jnp"
-        self.active_coarsest_tier = "jnp"
-        if mres_perf_opt == MresPerfOptimizationType.FUSION_AT_FINEST:
-            fused_levels = ()
-            self._build_cts_finest()
-        elif mres_perf_opt in (
-            MresPerfOptimizationType.FUSION_AT_FINEST_SFV,
-            MresPerfOptimizationType.FUSION_AT_FINEST_SFV_ALL,
-        ):
-            fused_levels = tuple(range(1, grid.num_levels))
-            self._build_cts_finest()
-        else:
-            fused_levels = ()
-        if self._cts is not None:
-            self._build_cts_coarsest()
-            self._build_cts_mid()
-        if fused_levels:
-            self._build_fused_collides(fused_levels)
-
-    @staticmethod
-    def _ring_for(extent, tile_extent):
-        """Smallest ring width >= 2 making ``extent + 2*ring`` a multiple of
-        ``tile_extent`` (requires an even extent; rings grow in steps of
-        tile_extent/2... i.e. step tile_extent once doubled)."""
-        if extent % 2:
-            return None
-        half = tile_extent // 2 if tile_extent % 2 == 0 else tile_extent
-        g = (-(extent // 2)) % half
-        while g < 2:
-            g += half
-        return g
-
-    def _build_cts_finest(self):
-        """The finest level has no children, so BOTH its sub-steps of a
-        coarse step (collide -> BCs -> ghost-ring stream -> BCs, twice)
-        fuse into one Pallas pass.  Preferred tier: the thin-piece pair
-        kernel (per-axis rings, ~1.9x read amplification); fallback: the
-        block-mapped pair kernel (common ring, ~4.5x); last resort: the
-        jnp tier (with a fallback notice)."""
-        import jax as _jax
-
-        from xlb_tpu.utils.tiers import notify_fallback
-        from xlb_tpu.kernels.fused_step import bc_to_spec, stepper_force_vector  # noqa: F401
-        from xlb_tpu.kernels.collide_then_stream import (
-            build_fused_collide_then_stream,
-            build_fused_cts_pair_thin,
-        )
-
-        if self.grid.dim != 3 or self.grid.num_levels < 2:
-            return
-        shape = self.grid.levels[0].shape
-        X, Y, Z = shape
-        interpret = _jax.default_backend() == "cpu"
-        try:
-            specs = [bc_to_spec(bc, self.velocity_set) for bc in self.boundary_conditions.get(0, [])]
-        except NotImplementedError as e:
-            notify_fallback(f"multires finest level stays on the jnp tier: {e}")
-            return
-
-        # 16-bit storage runs in deviation form (g = f - w); decided here so
-        # both the single-chip and sharded branches agree
-        shifted_pref = jnp.dtype(self.precision_policy.store_dtype).itemsize < 4
-        if self._mesh is not None:
-            self._build_cts_finest_sharded(specs, shifted_pref, interpret)
-            return
-
-        # ---- preferred: thin-piece pair with per-axis rings --------------
-        # Rank (tile, ring) candidates by total HBM traffic: ring-area
-        # inflation (the grid covers ALL ext tiles) x per-tile halo read
-        # amplification.  A slightly odd TX that makes the ring collapse to
-        # 2 (e.g. TX=20 for X=96 -> Xe=100) beats a power of two with a
-        # fat alignment ring.
-        fx = lambda TX: None if (g := self._ring_for(X, TX)) is None else (g, (X + 2 * g) / X)
-        fy = lambda TY: None if (g := self._ring_for(Y, TY)) is None else (g, (Y + 2 * g) / Y)
-        # Coalesce-capable candidates first (stable within each group): the
-        # finest level ALWAYS coalesces into its parent, and losing the
-        # in-kernel 2x2 side output costs a separate full-interior jnp
-        # average pass that dwarfs any halo-traffic delta between tiles
-        # (measured 314 -> 1170 MLUPS on the fully-refined bf16 cavity,
-        # where the traffic ranking alone picked TY=24 over TY=32).
-        candidates = sorted(_rank_tiles(fx, fy), key=lambda c: not _coalesce_capable(*c))
-        # z ring stays minimal: a 128-aligned lane extent (gz = (-Z mod 128)/2)
-        # was measured SLOWER end to end (753 -> 310 MLUPS on 192^3/96^3) --
-        # the larger logical Zl inflates the kernel's VMEM working-set
-        # estimate and pushes tile selection to high-amplification tiles,
-        # which costs far more than the misaligned-lane relayouts save.
-        gz = 2
-        # 16-bit storage runs in deviation form (g = f - w): same
-        # well-conditioning trick as the single-res kernels, at half the
-        # pair kernel's HBM traffic (docs/performance.md)
-        shifted = shifted_pref
-        for tile, gx, gy in candidates:
-            ext_shape = (X + 2 * gx, Y + 2 * gy, Z + 2 * gz)
-            # in-kernel 2x2 x/y coalescence needs even rings (fine-cell
-            # pairs aligned to ext pairs) and either f32 storage (sum
-            # rounding matches the jnp tier bit-for-bit) or deviation-form
-            # 16-bit storage (sums carry the deviation scale, so the
-            # 16-bit rounding stays benign)
-            co = _coalesce_capable(tile, gx, gy) and (
-                self.precision_policy.store_dtype == jnp.float32 or shifted
-            )
-            try:
-                self._cts = build_fused_cts_pair_thin(
-                    self.velocity_set,
-                    ext_shape,
-                    collision=self._kernel_collision,
-                    bc_specs=specs,
-                    compute_dtype=self.precision_policy.compute_dtype,
-                    store_dtype=self.precision_policy.store_dtype,
-                    tile=tile,
-                    interpret=interpret,
-                    coalesce_out=co,
-                    shifted=shifted,
-                )
-                self._cts_ring = (gx, gy, gz)
-                self._cts_has_coalesce = co
-                self._cts_shifted = shifted
-                self.active_finest_tier = (
-                    f"cts_pair_thin tile {tile} ring {self._cts_ring}"
-                    + (" +coalesce" if co else "")
-                    + (" shifted" if shifted else "")
-                )
-                return
-            except (NotImplementedError, ValueError):
-                continue
-
-        # ---- fallback: block-mapped pair (needs one common ring) ---------
-        if not (X % 2 or Y % 2 or (X - Y) % 8):
-            g = ((8 - X % 8) % 8) // 2
-            if g < 2:
-                g += 4  # the pair kernel's depth-2 pulls must stay inside the ring
-            ext_shape = tuple(s + 2 * g for s in shape)
-            if ext_shape[0] % 8 == 0 and ext_shape[1] % 8 == 0:
-                try:
-                    self._cts = build_fused_collide_then_stream(
-                        self.velocity_set,
-                        ext_shape,
-                        collision=self._kernel_collision,
-                        bc_specs=specs,
-                        compute_dtype=self.precision_policy.compute_dtype,
-                        store_dtype=self.precision_policy.store_dtype,
-                        tile=(8, 8),
-                        interpret=interpret,
-                        pair=True,
-                        shifted=shifted,
-                    )
-                    self._cts_ring = (g, g, g)
-                    self._cts_shifted = shifted
-                    self.active_finest_tier = f"cts_pair_blocked ring {g}"
-                    notify_fallback(
-                        "multires finest level uses the block-mapped pair kernel "
-                        f"(no DMA tile fits shape {shape}); expect ~2x more HBM reads"
-                    )
-                    return
-                except NotImplementedError as e:
-                    notify_fallback(f"multires finest level stays on the jnp tier: {e}")
-                    return
-        notify_fallback(
-            f"multires finest level stays on the jnp tier: no kernel tile/ring fits shape {shape}"
-        )
-
-    def _build_cts_finest_sharded(self, specs, shifted, interpret):
-        """Mesh-sharded finest pair: the kernel is built for the SHARD-local
-        padded shape and wrapped in a shard_map island with depth-2
-        ppermute halo exchange (the pair is a k=2 temporal block); the
-        wrapper keeps the single-chip call signature so the rest of the
-        stepper is oblivious (parallel/multires_distribute.py).  The
-        in-kernel coalescence side output is disabled (shard pads would
-        straddle its 2x2 sums); the host-side GSPMD average runs instead."""
-        from xlb_tpu.utils.tiers import notify_fallback
-        from xlb_tpu.kernels.collide_then_stream import build_fused_cts_pair_thin
-        from xlb_tpu.parallel.multires_distribute import (
-            pad_for,
-            ring_for_sharded,
-            wrap_cts_sharded,
-        )
-
-        mesh, (ax, ay) = self._mesh, self._mesh_axes
-        px, py = mesh.shape[ax], mesh.shape[ay]
-        X, Y, Z = self.grid.levels[0].shape
-        gx = ring_for_sharded(X, px, depth=2)
-        gy = ring_for_sharded(Y, py, depth=2)
-        gz = 2  # z is unsharded (lane-resident); minimal ring as single-chip
-        if gx is None or gy is None:
-            notify_fallback(
-                f"multires finest level stays on the jnp tier: no ghost ring makes "
-                f"shape {(X, Y)} divide the ({px}, {py}) mesh"
-            )
-            return
-        Xe, Ye, Ze = X + 2 * gx, Y + 2 * gy, Z + 2 * gz
-        Xl, Yl = Xe // px, Ye // py
-        fx = lambda TX: None if (h := pad_for(Xl, TX, 2)) is None else (h, (Xl + 2 * h) / Xl)
-        fy = lambda TY: None if (h := pad_for(Yl, TY, 2)) is None else (h, (Yl + 2 * h) / Yl)
-        for tile, hx, hy in _rank_tiles(fx, fy):
-            try:
-                kern = build_fused_cts_pair_thin(
-                    self.velocity_set,
-                    (Xl + 2 * hx, Yl + 2 * hy, Ze),
-                    collision=self._kernel_collision,
-                    bc_specs=specs,
-                    compute_dtype=self.precision_policy.compute_dtype,
-                    store_dtype=self.precision_policy.store_dtype,
-                    tile=tile,
-                    interpret=interpret,
-                    coalesce_out=False,
-                    shifted=shifted,
-                )
-            except (NotImplementedError, ValueError):
-                continue
-            self._cts = wrap_cts_sharded(
-                kern,
-                mesh=mesh,
-                axis_names=(ax, ay),
-                q=self.velocity_set.q,
-                global_shape=(Xe, Ye, Ze),
-                pads=(hx, hy),
-                depth=2,
-                shifted=shifted,
-                weights=self.velocity_set._w,
-            )
-            self._cts_ring = (gx, gy, gz)
-            self._cts_has_coalesce = False
-            self._cts_shifted = shifted
-            self.active_finest_tier = (
-                f"cts_pair_thin[shard_map ({px},{py})] tile {tile} "
-                f"ring {self._cts_ring} pad {(hx, hy)}" + (" shifted" if shifted else "")
-            )
-            return
-        notify_fallback(
-            f"multires finest level stays on the jnp tier: no sharded kernel tile "
-            f"fits the local shard {(Xl, Yl)}"
-        )
-
-    def _build_cts_coarsest(self):
-        """Fused single-sub-step kernel for the COARSEST level.
-
-        Its full step (collide -> collision BCs -> coalesce-overwrite of
-        the refined region -> stream -> streaming BCs -> solid freeze) runs
-        in one HBM pass: the coalesced average is pre-merged into the
-        stored state, refined cells carry packed cell-type 30 (keep
-        through collide, stream normally), the kernel's modular piece
-        wrap IS the jnp tier's periodic roll, and explosion faces come
-        from the lazy per-slab collide -- so the bulk jnp collide + stream
-        chain (59% of a half-box coarse step, docs/performance.md)
-        disappears.  Host-side gate: every coarse BC voxel must lie
-        OUTSIDE the refined region (_coarse_bc_placement_ok)."""
-        import jax as _jax
-
-        from xlb_tpu.kernels.fused_step import bc_to_spec
-        from xlb_tpu.kernels.collide_then_stream import build_fused_cts_pair_thin
-
-        L = self.grid.num_levels - 1
-        if self.grid.dim != 3 or L < 1:
-            return
-        X, Y, Z = self.grid.levels[L].shape
-        interpret = _jax.default_backend() == "cpu"
-        try:
-            specs = [bc_to_spec(bc, self.velocity_set) for bc in self.boundary_conditions.get(L, [])]
-        except NotImplementedError:
-            return
-
-        if self._mesh is not None:
-            self._build_cts_coarsest_sharded(specs, (X, Y, Z), interpret)
-            return
-
-        fx = lambda TX: None if X % TX else (None, 1.0)
-        fy = lambda TY: None if Y % TY else (None, 1.0)
-        for tile, _, _ in _rank_tiles(fx, fy):
-            try:
-                self._cts_coarse = build_fused_cts_pair_thin(
-                    self.velocity_set,
-                    (X, Y, Z),
-                    collision=self._kernel_collision,
-                    bc_specs=specs,
-                    compute_dtype=self.precision_policy.compute_dtype,
-                    store_dtype=self.precision_policy.store_dtype,
-                    tile=tile,
-                    interpret=interpret,
-                    pair=False,
-                    shifted=self._cts_shifted,
-                )
-                self.active_coarsest_tier = f"cts_single tile {tile}" + (" shifted" if self._cts_shifted else "")
-                return
-            except (NotImplementedError, ValueError, AssertionError):
-                continue
-        from xlb_tpu.utils.tiers import notify_fallback
-
-        notify_fallback(
-            f"multires coarsest level stays on the jnp tier: no kernel tile fits shape {(X, Y, Z)}"
-        )
-
-    def _build_cts_coarsest_sharded(self, specs, shape, interpret):
-        """Mesh-sharded coarsest single-sub-step kernel (depth-1 pulls):
-        the periodic ppermute exchange realizes the global periodic
-        streaming the single-chip kernel gets from its modular piece wrap."""
-        from xlb_tpu.kernels.collide_then_stream import build_fused_cts_pair_thin
-        from xlb_tpu.parallel.multires_distribute import pad_for, wrap_cts_sharded
-
-        from xlb_tpu.utils.tiers import notify_fallback
-
-        mesh, (ax, ay) = self._mesh, self._mesh_axes
-        px, py = mesh.shape[ax], mesh.shape[ay]
-        X, Y, Z = shape
-        if X % px or Y % py:
-            notify_fallback(
-                f"multires coarsest level stays on the jnp tier: shape {(X, Y)} does not "
-                f"divide the ({px}, {py}) mesh"
-            )
-            return
-        Xl, Yl = X // px, Y // py
-        fx = lambda TX: None if (h := pad_for(Xl, TX, 1)) is None else (h, (Xl + 2 * h) / Xl)
-        fy = lambda TY: None if (h := pad_for(Yl, TY, 1)) is None else (h, (Yl + 2 * h) / Yl)
-        for tile, hx, hy in _rank_tiles(fx, fy):
-            try:
-                kern = build_fused_cts_pair_thin(
-                    self.velocity_set,
-                    (Xl + 2 * hx, Yl + 2 * hy, Z),
-                    collision=self._kernel_collision,
-                    bc_specs=specs,
-                    compute_dtype=self.precision_policy.compute_dtype,
-                    store_dtype=self.precision_policy.store_dtype,
-                    tile=tile,
-                    interpret=interpret,
-                    pair=False,
-                    shifted=self._cts_shifted,
-                )
-            except (NotImplementedError, ValueError, AssertionError):
-                continue
-            self._cts_coarse = wrap_cts_sharded(
-                kern,
-                mesh=mesh,
-                axis_names=(ax, ay),
-                q=self.velocity_set.q,
-                global_shape=(X, Y, Z),
-                pads=(hx, hy),
-                depth=1,
-                shifted=self._cts_shifted,
-                weights=self.velocity_set._w,
-            )
-            self.active_coarsest_tier = (
-                f"cts_single[shard_map ({px},{py})] tile {tile} pad {(hx, hy)}"
-                + (" shifted" if self._cts_shifted else "")
-            )
-            return
-        notify_fallback(
-            f"multires coarsest level stays on the jnp tier: no sharded kernel tile "
-            f"fits the local shard {(Xl, Yl)}"
-        )
-
-    def _build_cts_mid(self):
-        """Fused single-sub-step kernels for MIDDLE levels (every level
-        strictly between finest and coarsest).  Each middle sub-step then
-        runs collide + coalesce-overwrite + ghost-ring stream in one pass
-        over a ring-extended array: ring cells carry packed cell-type 30
-        and the parent's lazily-collided explosion faces land on the
-        innermost ring layer, exactly like the finest pair's ghosts.
-        Middle levels stack: a fused middle's child may itself be a fused
-        middle (4+ level hierarchies advance every level in-kernel, so
-        each added level costs its own cell count, not a jnp-tier 2x).
-        Restricted to BC-less middle levels (BCs inside a 30-masked
-        ring/box would be silently skipped; typical scenes put BCs on the
-        coarsest walls and the finest mesh only) -- a middle WITH BCs
-        stays jnp without blocking fusion of the levels around it."""
-        import jax as _jax
-
-        from xlb_tpu.kernels.collide_then_stream import build_fused_cts_pair_thin
-
-        L = self.grid.num_levels
-        self._cts_mid = [None] * L
-        self._mid_ring = [None] * L
-        self._mid_persist = [False] * L  # ring_freeze built in: faces survive the kernel pass
-        self._mid_coalesce = [False] * L  # kernel also emits the 2x2-summed core
-        if self.grid.dim != 3 or L < 3 or self._cts is None:
-            return
-        interpret = _jax.default_backend() == "cpu"
-        for level in range(1, L - 1):
-            if self.boundary_conditions.get(level, []):
-                continue
-            X, Y, Z = self.grid.levels[level].shape
-            if self._mesh is not None:
-                self._build_cts_mid_sharded(level, (X, Y, Z), interpret)
-                continue
-            gz = 1
-            fx = lambda TX: None if (g := self._ring_for(X, TX)) is None else (g, (X + 2 * g) / X)
-            fy = lambda TY: None if (g := self._ring_for(Y, TY)) is None else (g, (Y + 2 * g) / Y)
-            mid_candidates = sorted(_rank_tiles(fx, fy), key=lambda c: not _coalesce_capable(*c))
-            for tile, gx, gy in mid_candidates:
-                # in-kernel 2x2 x/y coalescence: the PARENT's explosion-free
-                # average then reads the 4x smaller side output instead of
-                # this level's full interior (same gates as the finest pair;
-                # capable tiles ranked first for the same reason)
-                co = _coalesce_capable(tile, gx, gy) and (
-                    self.precision_policy.store_dtype == jnp.float32 or self._cts_shifted
-                )
-                try:
-                    self._cts_mid[level] = build_fused_cts_pair_thin(
-                        self.velocity_set,
-                        (X + 2 * gx, Y + 2 * gy, Z + 2 * gz),
-                        collision=self._kernel_collision,
-                        bc_specs=[],
-                        compute_dtype=self.precision_policy.compute_dtype,
-                        store_dtype=self.precision_policy.store_dtype,
-                        tile=tile,
-                        interpret=interpret,
-                        pair=False,
-                        shifted=self._cts_shifted,
-                        ring_freeze=(gx, gy, gz),
-                        coalesce_out=co,
-                    )
-                    self._mid_ring[level] = (gx, gy, gz)
-                    self._mid_persist[level] = True
-                    self._mid_coalesce[level] = co
-                    break
-                except (NotImplementedError, ValueError, AssertionError):
-                    continue
-
-    def _build_cts_mid_sharded(self, level, shape, interpret):
-        """Mesh-sharded middle-level single-sub-step kernel: ring-extended
-        box sharded over (x, y), depth-1 ppermute exchange in the island."""
-        from xlb_tpu.kernels.collide_then_stream import build_fused_cts_pair_thin
-        from xlb_tpu.parallel.multires_distribute import (
-            pad_for,
-            ring_for_sharded,
-            wrap_cts_sharded,
-        )
-
-        mesh, (ax, ay) = self._mesh, self._mesh_axes
-        px, py = mesh.shape[ax], mesh.shape[ay]
-        X, Y, Z = shape
-        gx = ring_for_sharded(X, px, depth=1)
-        gy = ring_for_sharded(Y, py, depth=1)
-        gz = 1
-        if gx is None or gy is None:
-            return
-        Xe, Ye, Ze = X + 2 * gx, Y + 2 * gy, Z + 2 * gz
-        Xl, Yl = Xe // px, Ye // py
-        fx = lambda TX: None if (h := pad_for(Xl, TX, 1)) is None else (h, (Xl + 2 * h) / Xl)
-        fy = lambda TY: None if (h := pad_for(Yl, TY, 1)) is None else (h, (Yl + 2 * h) / Yl)
-        for tile, hx, hy in _rank_tiles(fx, fy):
-            try:
-                kern = build_fused_cts_pair_thin(
-                    self.velocity_set,
-                    (Xl + 2 * hx, Yl + 2 * hy, Ze),
-                    collision=self._kernel_collision,
-                    bc_specs=[],
-                    compute_dtype=self.precision_policy.compute_dtype,
-                    store_dtype=self.precision_policy.store_dtype,
-                    tile=tile,
-                    interpret=interpret,
-                    pair=False,
-                    shifted=self._cts_shifted,
-                )
-            except (NotImplementedError, ValueError, AssertionError):
-                continue
-            self._cts_mid[level] = wrap_cts_sharded(
-                kern,
-                mesh=mesh,
-                axis_names=(ax, ay),
-                q=self.velocity_set.q,
-                global_shape=(Xe, Ye, Ze),
-                pads=(hx, hy),
-                depth=1,
-                shifted=self._cts_shifted,
-                weights=self.velocity_set._w,
-            )
-            self._mid_ring[level] = (gx, gy, gz)
-            return
-
-    def _mid_mask_ext(self, level, bms, mms):
-        """Packed mask of a middle level's ring-extended box: ring cells
-        AND the refined region carry cell-type 30 (BC-less levels only,
-        enforced by _build_cts_mid)."""
-        from xlb_tpu.kernels.fused_step import pack_masks
-
-        packed = pack_masks(bms[level], mms[level])
-        lvl_c = self.grid.levels[level - 1]
-        slc = tuple(slice(o, o + e) for o, e in zip(lvl_c.origin_in_parent, lvl_c.extent_in_parent))
-        packed = packed.at[slc].set(jnp.int32(self._RING_VAL))
-        g = self._mid_ring[level]
-        return jnp.pad(packed, tuple((gi, gi) for gi in g), constant_values=self._RING_VAL)
-
-    def _coarse_bc_placement_ok(self):
-        """True when no coarsest-level BC voxel lies inside the refined
-        region: the fused coarse pass masks that region as cell-type 30,
-        which would silently skip a BC there (the jnp tier applies it).
-        Evaluated lazily at first step (mesh BCs get indices at
-        prepare_fields) and cached."""
-        if self._coarse_fused_ok is None:
-            L = self.grid.num_levels - 1
-            lvl_c = self.grid.levels[L - 1]
-            lo = np.asarray(lvl_c.origin_in_parent)
-            hi = lo + np.asarray(lvl_c.extent_in_parent)
-            ok = True
-            for bc in self.boundary_conditions.get(L, []):
-                if bc.indices is None:
-                    ok = False
-                    break
-                # the masker tags needs_padding BCs at the DILATED shell
-                # (pad_indices, one stencil hop) -- test the voxels that
-                # actually carry the BC id, not just bc.indices
-                idx = np.asarray(bc.pad_indices())  # (d, n)
-                inside = np.all((idx >= lo[:, None]) & (idx < hi[:, None]), axis=0)
-                if inside.any():
-                    ok = False
-                    break
-            if not ok:
-                from xlb_tpu.utils.tiers import notify_fallback
-
-                notify_fallback(
-                    "multires coarsest level stays on the jnp tier: a BC voxel lies "
-                    "inside the refined region (the fused pass masks it as cell-type 30)"
-                )
-            self._coarse_fused_ok = ok
-        return self._coarse_fused_ok
-
-    def _coarse_mask_packed(self, bms, mms):
-        """Packed int32 mask of the coarsest level with the refined region
-        overwritten by cell-type 30 (solid voxels keep 31: the kernel's
-        freeze matches the jnp tier's _freeze_solids)."""
-        from xlb_tpu.kernels.fused_step import pack_masks
-
-        L = self.grid.num_levels - 1
-        packed = pack_masks(bms[L], mms[L])
-        lvl_c = self.grid.levels[L - 1]
-        slc = tuple(slice(o, o + e) for o, e in zip(lvl_c.origin_in_parent, lvl_c.extent_in_parent))
-        box = packed[slc]
-        from xlb_tpu.kernels.collide_stream import kernel_solid_id, unpack_bc_id
-
-        solid = unpack_bc_id(box, self.velocity_set.q) == kernel_solid_id(self.velocity_set.q)
-        return packed.at[slc].set(jnp.where(solid, box, jnp.int32(self._RING_VAL)))
-
-    def _build_fused_collides(self, levels):
-        import jax as _jax
-
-        from xlb_tpu.kernels.fused_step import bc_to_spec
-        from xlb_tpu.kernels.collide_only import build_level_collide
-
-        cdt = self.precision_policy.compute_dtype
-        interpret = _jax.default_backend() == "cpu"
-        for l in levels:
-            try:
-                specs = [bc_to_spec(bc, self.velocity_set) for bc in self.boundary_conditions.get(l, [])]
-                self._fused_collide[l] = build_level_collide(
-                    self.velocity_set,
-                    self.grid.levels[l].shape,
-                    collision=self._kernel_collision,
-                    bc_specs=specs,
-                    compute_dtype=cdt,
-                    store_dtype=cdt,
-                    interpret=interpret,
-                )
-            except NotImplementedError:
-                # unsupported BC (aux staging / mesh-data kinds): this
-                # level stays on the jnp tier
-                self._fused_collide[l] = None
+        self.active_tier = "jnp"
 
     # ------------------------------------------------------------------
-    def _build_ghost_gather(self, level, ring=1):
-        """Static index maps: every cell of the fine level's ring-extended
-        box -> the parent-level cell containing it.  ``ring`` may be a
-        scalar or a per-axis tuple."""
+    def _build_ghost_gather(self, level):
+        """Static index maps: every cell of the fine level's one-cell
+        ring-extended box -> the parent-level cell containing it."""
         lvl = self.grid.levels[level]
         parent_shape = self.grid.levels[level + 1].shape
-        if np.isscalar(ring):
-            ring = (ring,) * self.grid.dim
         maps = []
         for d in range(self.grid.dim):
-            fine_coords = np.arange(-ring[d], lvl.shape[d] + ring[d])  # extended fine indices
+            fine_coords = np.arange(-1, lvl.shape[d] + 1)  # extended fine indices
             parent_idx = lvl.origin_in_parent[d] + np.floor((fine_coords + 0.5) / 2.0).astype(np.int64)
             parent_idx = np.clip(parent_idx, 0, parent_shape[d] - 1)
             maps.append(parent_idx)
@@ -790,14 +168,7 @@ class MultiresIncompressibleNavierStokesStepper(Operator):
         return self.collision(f, feq, omega)
 
     def _collide_with_bcs(self, level, f, bm, mm, omega):
-        """Collision phase of one sub-step: fused Pallas kernel when the
-        strategy selects this level (collision-step BCs applied in-kernel),
-        jnp tier otherwise."""
-        fused = self._fused_collide[level]
-        if fused is not None:
-            from xlb_tpu.kernels.fused_step import pack_masks
-
-            return fused(f, pack_masks(bm, mm), omega)
+        """Collision phase of one sub-step, collision-step BCs included."""
         f_pc = self._collide(f, omega)
         return self._apply_bcs(ImplementationStep.COLLISION, level, f, f_pc, bm, mm)
 
@@ -808,30 +179,18 @@ class MultiresIncompressibleNavierStokesStepper(Operator):
         streamed = stream_pull(ext, self.velocity_set._c)
         return streamed[interior]
 
-    def _explode(self, f_coarse, level, ring=1):
+    def _explode(self, f_coarse, level):
         """Gather the parent's populations onto the fine level's extended box
         (piecewise-constant upsampling) as a separable per-axis take."""
-        if ring == 1:
-            maps = self._ghost_gather[level]
-        else:
-            key = (level, ring)
-            cache = getattr(self, "_ghost_gather_cache", None)
-            if cache is None:
-                cache = self._ghost_gather_cache = {}
-            if key not in cache:
-                cache[key] = self._build_ghost_gather(level, ring)
-            maps = cache[key]
         out = f_coarse
-        for axis, g in enumerate(maps):
+        for axis, g in enumerate(self._ghost_gather[level]):
             out = jnp.take(out, jnp.asarray(g), axis=axis + 1)
         return out
 
     def _coalesce_avg(self, f_fine, level_fine):
-        """The 2^d-child average of a fine level's populations.
-
-        Pairwise strided adds on the leading spatial axes + a trailing
-        reshape-sum on the minor (lane) axis: ~1.5x faster on TPU than the
-        single reshape-mean over all axes (measured), identical in f32."""
+        """The 2^d-child average of a fine level's populations: pairwise
+        strided adds on the leading spatial axes, then a reshape-sum on the
+        last one."""
         d = self.grid.dim
         shape = self.grid.levels[level_fine].shape
         avg = f_fine
@@ -844,56 +203,12 @@ class MultiresIncompressibleNavierStokesStepper(Operator):
         new_shape = avg.shape[:-1] + (shape[d - 1] // 2, 2)
         return avg.reshape(new_shape).sum(axis=-1) * self.precision_policy.compute_dtype(0.5**d)
 
-    def _w_col(self):
-        """Lattice weights as a host-NumPy (q, 1, 1[, 1]) broadcast column
-        (NumPy so it embeds as a small jit constant -- device-array
-        constants stall lowering on this stack, CLAUDE.md)."""
-        w = np.asarray(self.velocity_set._w, dtype=np.dtype(self.precision_policy.compute_dtype))
-        return w.reshape((-1,) + (1,) * self.grid.dim)
-
-    def _avg_from_out2(self, out2, level=0):
-        """Finish the fine->coarse average from a CTS kernel's 2x2
-        x/y-summed side output: slice the interior, z-pair sum, scale.
-        When the kernel stores deviations (shifted), out2 holds deviation
-        sums -- add the weight back after scaling.  ``level``: the CHILD
-        level the out2 came from (0 = finest pair kernel; >0 = a fused
-        middle's single-sub-step kernel).
-
-        The z-pair sum uses a reshape-split rather than strided lane
-        slices: measured 2.2 vs 2.9 ms on the 192^3 scene (stride-2 lane
-        gathers relayout the whole array; the trailing (Z/2, 2) split
-        keeps lanes contiguous)."""
-        cdt = self.precision_policy.compute_dtype
-        gx, gy, gz = self._cts_ring if level == 0 else self._mid_ring[level]
-        X, Y, Z = self.grid.levels[level].shape
-        sl = out2[:, gx // 2 : (gx + X) // 2, gy // 2 : (gy + Y) // 2, gz : gz + Z]
-        sl = sl.astype(cdt)
-        avg = sl.reshape(sl.shape[:-1] + (Z // 2, 2)).sum(-1) * cdt(0.125)
-        if self._cts_shifted:
-            avg = avg + self._w_col()
-        return avg
-
-    def _child_avg(self, fs, child, ext_state, shifted_state, mid_ext=False):
-        """The child level's fine->coarse average for the parent merge.
-        Prefers the stashed in-kernel 2x2-summed side output of the child's
-        LAST kernel pass (``_pending_mid_avg``, set by _advance_mid_fused
-        when its kernel was built with coalesce_out) -- the host then only
-        z-pair-sums the 4x smaller array instead of reading the child's
-        whole interior.  Falls back to the jnp average otherwise."""
-        out2 = self._pending_mid_avg.pop(child, None)
-        if out2 is not None:
-            return self._avg_from_out2(out2, level=child)
-        return self._coalesce_avg(self._fine_for_avg(fs, child, ext_state, shifted_state, mid_ext=mid_ext), child)
-
-    def _coalesce_from_avg(self, f_coarse, avg, level_fine):
-        """Write a precomputed fine->coarse average into the refined cells."""
-        lvl = self.grid.levels[level_fine]
-        return self._merge_box(f_coarse, avg, lvl.origin_in_parent)
-
     def _coalesce(self, f_coarse, f_fine, level_fine):
         """Average 2^d fine children into the refined coarse cells."""
+        lvl = self.grid.levels[level_fine]
         avg = self._coalesce_avg(f_fine, level_fine)
-        return self._coalesce_from_avg(f_coarse, avg, level_fine)
+        box = (slice(None),) + tuple(slice(o, o + e) for o, e in zip(lvl.origin_in_parent, avg.shape[1:]))
+        return f_coarse.at[box].set(avg.astype(f_coarse.dtype))
 
     def _apply_bcs(self, step, level, f_pre, f_post, bc_mask, missing_mask):
         for bc in self.boundary_conditions.get(level, []):
@@ -916,733 +231,74 @@ class MultiresIncompressibleNavierStokesStepper(Operator):
             return f_after
         return jnp.where(bms[level] == 255, f_before, f_after)
 
-    def _fully_refined_fast(self, level, probe):
-        """True when ``level``'s whole domain is covered by its child level
-        AND its collision output is therefore fully overwritten by the
-        coalescence: the bulk collide can be skipped (only the explosion
-        face slabs need collided values).  Aux-staging BCs write into the
-        post-collision state, so their presence disables the shortcut."""
-        if level == 0 or probe is not None:
-            return False
-        child_lvl = self.grid.levels[level - 1]
-        if child_lvl.extent_in_parent != self.grid.levels[level].shape:
-            return False
-        for bc in self.boundary_conditions.get(level, []):
-            if bc.implementation_step == ImplementationStep.COLLISION or getattr(bc, "needs_aux_recovery", False) or getattr(bc, "is_initialized_with_aux_data", False):
-                return False
-        return True
 
-    def _collide_face_slab(self, level, f, bms, mms, omega, axis, pis):
-        """Post-collision populations of the parent layers ``pis`` along
-        ``axis`` (the only coarse cells the child's ghost explosion reads),
-        collided in one batched call -- both sides of an axis share one
-        moments/equilibrium/collide sweep instead of two.
-
-        The slab comes from the MATERIALIZED compute-dtype parent ``f``
-        via one take per axis: extracting the layers straight from the
-        raw stored carry was measured 3.4 ms/coarse-step SLOWER on the
-        96^3 3-level scene -- a 2-layer z slab is a lane-dim slice, which
-        relayouts the whole array (CLAUDE.md), three times per sub-step."""
-        sel = np.asarray(pis)
-        f_slab = jnp.take(f, sel, axis=axis + 1)
-        f_pc = self._collide(f_slab, omega)
-        bcs = self.boundary_conditions.get(level, [])
-        if bcs:
-            bm_s = jnp.take(bms[level], sel, axis=axis + 1)
-            mm_s = jnp.take(mms[level], sel, axis=axis + 1)
-            for bc in bcs:
-                if bc.implementation_step == ImplementationStep.COLLISION:
-                    f_pc = bc(f_slab, f_pc, bm_s, mm_s)
-            f_pc = jnp.where(bm_s == 255, f_slab, f_pc)
-        return f_pc
-
-    def _explode_faces_lazy(self, level_parent, f, bms, mms, omega, child, ring, for_kernel=True):
-        """Explosion face slabs computed WITHOUT a full parent collide:
-        collide just the <= 2*d parent layers the ring reads.  Used by the
-        fully-refined shortcut (bulk collide is dead work there) and by
-        the fused coarsest pass (the bulk collide happens in-kernel,
-        AFTER the children already consumed these faces).
-
-        ``for_kernel=True`` emits slabs in the kernel ext's stored form
-        (deviation-shifted when the kernel is); ``False`` keeps the
-        compute dtype for the jnp ghost path."""
-        key = (child, tuple(ring))
-        cache = getattr(self, "_ghost_gather_cache", None)
-        if cache is None:
-            cache = self._ghost_gather_cache = {}
-        if key not in cache:
-            cache[key] = self._build_ghost_gather(child, ring)
-        maps = cache[key]
-        d = self.grid.dim
-        store_dtype = self.precision_policy.store_dtype if for_kernel else self.precision_policy.compute_dtype
-        faces = []
-        for axis in range(d):
-            ext_len = len(maps[axis])
-            positions = (ring[axis] - 1, ext_len - ring[axis])
-            pis = [int(maps[axis][pos]) for pos in positions]
-            slab2 = self._collide_face_slab(level_parent, f, bms, mms, omega, axis, pis)
-            for a in range(d):
-                if a != axis:
-                    slab2 = jnp.take(slab2, jnp.asarray(maps[a]), axis=a + 1)
-            if for_kernel and self._cts_shifted:
-                slab2 = slab2 - self._w_col()  # faces live in the kernel's deviation form
-            slab2 = slab2.astype(store_dtype)
-            for side, pos in enumerate(positions):
-                sl = [slice(None)] * (d + 1)
-                sl[axis + 1] = slice(side, side + 1)
-                idx = [0] * (d + 1)
-                idx[axis + 1] = pos
-                faces.append((tuple(idx), slab2[tuple(sl)]))
-        return faces
-
-    def _fine_for_avg(self, fs, child, ext_state, shifted_state, mid_ext=False):
-        """The child level's populations in compute dtype, unshifted, ready
-        for the fallback host-side coalescence average (the ``out2 is
-        None`` paths).  ``mid_ext``: fused-middle levels' states are
-        ring-extended in kernel storage form (the resident-window path) --
-        slice the interior lazily (it fuses into the coalescence pass)."""
-        pp = self.precision_policy
-        f_fine = fs[child]
-        shifted = False
-        if child == 0 and ext_state:
-            g = self._cts_ring
-            f_fine = f_fine[(slice(None),) + tuple(slice(gi, -gi) for gi in g)]
-            shifted = self._cts_shifted
-        elif child > 0:
-            shifted = shifted_state
-            if mid_ext and self._cts_mid[child] is not None:
-                g = self._mid_ring[child]
-                f_fine = f_fine[(slice(None),) + tuple(slice(gi, -gi) for gi in g)]
-                shifted = self._cts_shifted
-        f = pp.cast_to_compute(f_fine)
-        if shifted:
-            f = f + self._w_col()
-        return f
-
-    def _coarse_fused_step(self, level, fs, avg, bms, mms, omega, shifted_state, mask_coarse):
-        """Finish a coarsest-level step in ONE fused pass: merge the
-        coalesced average into the stored state (skipping solid voxels --
-        the kernel's 31-freeze then restores their original populations,
-        matching _freeze_solids) and run the single-sub-step CTS kernel
-        (collide everywhere except the 30-masked refined region, stream,
-        BCs)."""
-        pp = self.precision_policy
-        lvl_c = self.grid.levels[level - 1]
-        slc = (slice(None),) + tuple(
-            slice(o, o + e) for o, e in zip(lvl_c.origin_in_parent, lvl_c.extent_in_parent)
-        )
-        if self._cts_shifted:
-            avg_s = (avg - self._w_col()).astype(pp.store_dtype)
-            state_in = (
-                fs[level]
-                if shifted_state
-                else (pp.cast_to_compute(fs[level]) - self._w_col()).astype(pp.store_dtype)
-            )
-        else:
-            avg_s = avg.astype(pp.store_dtype)
-            state_in = fs[level] if fs[level].dtype == pp.store_dtype else pp.cast_to_store(fs[level])
-        solid = (bms[level][(0,) + slc[1:]] == 255)[None]
-        merged = self._merge_box(
-            state_in, avg_s, tuple(s.start for s in slc[1:]), keep=solid
-        )
-        mask_c = mask_coarse if mask_coarse is not None else self._coarse_mask_packed(bms, mms)
-        out = self._cts_coarse(merged, mask_c, omega)
-        if self._cts_shifted and not shifted_state:
-            out = pp.cast_to_compute(out) + self._w_col()
-        fs = list(fs)
-        fs[level] = out
-        return fs
-
-    def _advance(self, level, fs, bms, mms, omega_finest, probe=None, ext_state=False, mask_ext=None, shifted_state=False, mask_coarse=None, mask_mid=None, mid_ext=False):
-        """Coarsest-level stash hygiene around :meth:`_advance_impl`: the
-        ``_pending_mid_avg`` dict holds TRACERS between a child's kernel
-        pass and its parent's merge within one trace, so a coarsest-level
-        advance must start empty (a stale tracer from an aborted earlier
-        trace must never leak in) and must end empty (every stash popped
-        by exactly one ``_child_avg``)."""
-        if level == self.grid.num_levels - 1:
-            self._pending_mid_avg = {}
-            out = self._advance_impl(level, fs, bms, mms, omega_finest, probe, ext_state, mask_ext, shifted_state, mask_coarse, mask_mid, mid_ext)
-            assert not self._pending_mid_avg, (
-                f"_pending_mid_avg not drained after a coarsest-level advance: stale levels {sorted(self._pending_mid_avg)}"
-            )
-            return out
-        return self._advance_impl(level, fs, bms, mms, omega_finest, probe, ext_state, mask_ext, shifted_state, mask_coarse, mask_mid, mid_ext)
-
-    def _advance_impl(self, level, fs, bms, mms, omega_finest, probe=None, ext_state=False, mask_ext=None, shifted_state=False, mask_coarse=None, mask_mid=None, mid_ext=False):
-        """Advance ``level`` by one of its own timesteps (recursively running
-        2 sub-steps of each finer level).  ``fs`` is the per-level state list
-        (current populations).  ``probe``, if given, is called as
-        ``probe(level, f_post_stream, f_post_collision)`` after each
-        sub-step (used by step_with_force).  ``ext_state``/``mask_ext``:
-        resident ring-extended finest state (see build_window).
-        ``shifted_state``: coarse-level states live in deviation form
-        g = f - w between sub-steps (16-bit windows) -- loads add the
-        weight back, stores subtract it.  ``mask_coarse``: precomputed
-        packed mask for the fused coarsest pass (windows hoist it)."""
+    def _substep(self, level, fs, bms, mms, omega_finest, ghost_ext, probe):
+        """One timestep of ``level``: collide, run the finer level's two
+        sub-steps against this post-collision state and coalesce them back,
+        then stream (through the parent's ghost ring when ``ghost_ext`` is
+        given, periodically otherwise) and apply the streaming BCs."""
         pp = self.precision_policy
         omega = pp.compute_dtype(compute_omega(omega_finest, level))
         f = pp.cast_to_compute(fs[level])
-        if shifted_state and level > 0:
-            f = f + self._w_col()
-
-        child = level - 1
-        fused_coarse = (
-            level > 0
-            and self._cts_coarse is not None
-            and probe is None
-            and self._coarse_bc_placement_ok()
-        )
-        if fused_coarse:
-            if child == 0 and self._cts is not None:
-                faces = self._explode_faces_lazy(level, f, bms, mms, omega, child, self._cts_ring)
-                fs, out2 = self._cts_fine_pair(
-                    fs, bms, mms, omega_finest, None, ext_state=ext_state, mask_ext=mask_ext, faces=faces
-                )
-                if out2 is not None:
-                    avg = self._avg_from_out2(out2)
-                else:
-                    avg = self._coalesce_avg(self._fine_for_avg(fs, child, ext_state, shifted_state), child)
-            elif self._cts_mid[child] is not None:
-                # the child is a fused middle level: hand it kernel-form
-                # ring faces (its own sub-steps run in-kernel)
-                ghost_faces = self._explode_faces_lazy(level, f, bms, mms, omega, child, self._mid_ring[child])
-                fs = self._advance_fine_pair(
-                    child, fs, bms, mms, omega_finest, None, probe, ext_state, mask_ext, shifted_state,
-                    ghost_faces=ghost_faces, mask_mid=mask_mid, mid_ext=mid_ext,
-                )
-                avg = self._child_avg(fs, child, ext_state, shifted_state, mid_ext=mid_ext)
-            else:
-                # deeper hierarchies: the child ring only ever reads the
-                # innermost ghost layer, so a zeros ghost box overlaid with
-                # the lazily-collided faces replaces the full _explode
-                # gather of a bulk-collided parent
-                faces = self._explode_faces_lazy(level, f, bms, mms, omega, child, (1,) * self.grid.dim, for_kernel=False)
-                ghost_ext = jnp.zeros(
-                    (self.velocity_set.q,) + tuple(s + 2 for s in self.grid.levels[child].shape),
-                    pp.compute_dtype,
-                )
-                ghost_ext = self._overlay_faces(ghost_ext, faces)
-                fs = self._advance_fine_pair(child, fs, bms, mms, omega_finest, ghost_ext, probe, ext_state, mask_ext, shifted_state, mask_mid=mask_mid, mid_ext=mid_ext)
-                avg = self._coalesce_avg(self._fine_for_avg(fs, child, ext_state, shifted_state, mid_ext=mid_ext), child)
-            return self._coarse_fused_step(level, fs, avg, bms, mms, omega, shifted_state, mask_coarse)
-
-        fast_full = (
-            self._fully_refined_fast(level, probe)
-            and child == 0
-            and self._cts is not None
-        )
-        if fast_full:
-            # fully-refined shortcut: every coarse cell is overwritten by
-            # the coalescence, so only the explosion faces need collided
-            # values -- skip the full-grid collide entirely
-            faces = self._explode_faces_lazy(level, f, bms, mms, omega, child, self._cts_ring)
-            fs, out2 = self._cts_fine_pair(fs, bms, mms, omega_finest, None, ext_state=ext_state, mask_ext=mask_ext, faces=faces)
-            if out2 is not None:
-                f_pc = self._avg_from_out2(out2)
-            else:
-                f_pc = self._coalesce_avg(self._fine_for_avg(fs, child, ext_state, shifted_state), child)
+        f_pc = self._collide_with_bcs(level, f, bms[level], mms[level], omega)
+        f_pc = self._freeze_solids(level, f, f_pc, bms)
+        if level > 0:
+            child = level - 1
+            ghost_child = self._explode(f_pc, child)
+            for _ in range(2):
+                fs = self._substep(child, fs, bms, mms, omega_finest, ghost_child, probe)
+            f_pc = self._coalesce(f_pc, pp.cast_to_compute(fs[child]), child)
+        if ghost_ext is None:
+            f_ps = stream_pull(f_pc, self.velocity_set._c)
         else:
-            f_pc = self._collide_with_bcs(level, f, bms[level], mms[level], omega)
-            f_pc = self._freeze_solids(level, f, f_pc, bms)
-
-        if level > 0 and not fast_full:
-            # two fine sub-steps against this level's post-collision state
-            fs, out2 = self._advance_children(level, fs, bms, mms, omega_finest, f_pc, probe, ext_state, mask_ext, shifted_state, mask_mid, mid_ext=mid_ext)
-            # pull coalesced fine state into the refined region before streaming
-            if out2 is not None:
-                avg = self._avg_from_out2(out2)
-                lvl_c = self.grid.levels[child]
-                f_pc = self._merge_box(f_pc, avg, lvl_c.origin_in_parent)
-            else:
-                f_pc = self._coalesce_from_avg(f_pc, self._child_avg(fs, child, ext_state, shifted_state, mid_ext=mid_ext), child)
-
-        f_ps = stream_pull(f_pc, self.velocity_set._c)
+            f_ps = self._stream_with_ghosts(f_pc, ghost_ext, level)
         f_ps = self._apply_bcs(ImplementationStep.STREAMING, level, f_pc, f_ps, bms[level], mms[level])
         f_ps = self._freeze_solids(level, f, f_ps, bms)
         if probe is not None:
             probe(level, f_ps, f_pc)
         fs = list(fs)
-        if shifted_state and level > 0:
-            f_ps = f_ps - self._w_col()
         fs[level] = pp.cast_to_store(f_ps)
         return fs
 
-    def _advance_children(self, level, fs, bms, mms, omega_finest, f_pc, probe, ext_state=False, mask_ext=None, shifted_state=False, mask_mid=None, mid_ext=False):
-        """Run the two sub-steps of ``level - 1`` against this level's
-        post-collision state, through the fused finest path when active
-        (the force probe needs the jnp path's intermediate states)."""
-        child = level - 1
-        if child == 0 and self._cts is not None and probe is None:
-            return self._cts_fine_pair(fs, bms, mms, omega_finest, f_pc, ext_state=ext_state, mask_ext=mask_ext)
-        if self._cts_mid[child] is not None and probe is None:
-            ghost_faces = self._explode_ring_faces(f_pc, child, self._mid_ring[child], self.precision_policy.store_dtype)
-            return (
-                self._advance_fine_pair(
-                    child, fs, bms, mms, omega_finest, None, probe, ext_state, mask_ext, shifted_state,
-                    ghost_faces=ghost_faces, mask_mid=mask_mid, mid_ext=mid_ext,
-                ),
-                None,
-            )
-        ghost_ext = self._explode(f_pc, child)
-        return self._advance_fine_pair(child, fs, bms, mms, omega_finest, ghost_ext, probe, ext_state, mask_ext, shifted_state, mask_mid=mask_mid, mid_ext=mid_ext), None
-
-    def _explode_ring_faces(self, parent_pc, level, ring, store_dtype):
-        """Gather only the INNERMOST ghost-ring layer (the only ring cells
-        interior pulls ever read) as 6 depth-1 face slabs; returns
-        [(dus_index, slab)] ready for dynamic_update_slice into the
-        ring-extended array.  ``ring`` is a per-axis tuple."""
-        key = (level, tuple(ring))
-        cache = getattr(self, "_ghost_gather_cache", None)
-        if cache is None:
-            cache = self._ghost_gather_cache = {}
-        if key not in cache:
-            cache[key] = self._build_ghost_gather(level, ring)
-        maps = cache[key]
-        d = self.grid.dim
-        faces = []
-        for axis in range(d):
-            ext_len = len(maps[axis])
-            for pos in (ring[axis] - 1, ext_len - ring[axis]):
-                # thin take first so the remaining gathers run on the slab
-                slab = jnp.take(parent_pc, jnp.asarray(maps[axis][pos : pos + 1]), axis=axis + 1)
-                for a in range(d):
-                    if a != axis:
-                        slab = jnp.take(slab, jnp.asarray(maps[a]), axis=a + 1)
-                idx = [0] * (d + 1)
-                idx[axis + 1] = pos
-                if self._cts_shifted:
-                    slab = slab - self._w_col()  # faces live in the kernel's deviation form
-                faces.append((tuple(idx), slab.astype(store_dtype)))
-        return faces
-
-    @property
-    def _RING_VAL(self):
-        """Packed SFV/ghost keep-out value for this stepper's stencil
-        (fused_step.ring_val: 254 << 19 for q <= 19, 30 << 27 for D3Q27)."""
-        from xlb_tpu.kernels.fused_step import ring_val
-
-        return ring_val(self.velocity_set.q)
-
-    def _overlay_faces(self, ext, faces):
-        """Write the ring face slabs into the extended array as ONE fused
-        elementwise pass (iota-mask selects).  Six chained
-        ``dynamic_update_slice`` on a large loop-carried array cost a full
-        HBM copy EACH (XLA does not update in place here; measured 8.9 ms
-        vs 6.1 ms fused at 19 x 200 x 224 x 196) -- the fused selects pay
-        one read+write of ext total."""
-        d = self.grid.dim
-        for idx, slab in faces:
-            axis = next(a for a in range(d) if slab.shape[a + 1] == 1)
-            pos = idx[axis + 1]
-            io_shape = (1,) * (axis + 1) + (ext.shape[axis + 1],) + (1,) * (d - axis - 1)
-            io = jax.lax.broadcasted_iota(jnp.int32, io_shape, axis + 1)
-            ext = jnp.where(io == pos, slab.astype(ext.dtype), ext)
-        return ext
-
-    def _merge_box(self, dst, src, lows, keep=None):
-        """Write ``src`` into ``dst`` at per-axis offsets ``lows`` as ONE
-        fused pad + iota-box select pass.  ``dynamic_update_slice`` with an
-        interior (lane-unaligned) offset costs ~0.85 ms on the 96^3 scene
-        -- the traced window showed the three per-coarse-step avg merges
-        (2 mid + 1 coarse) were 2.5 of 7.4 ms.  The pad fuses into the
-        select's loop, so this pays one aligned read of each operand and
-        one aligned write (~0.2 ms).  ``keep``, if given, is a (1, ...)
-        bool over the box: True cells keep dst's value (solid skip)."""
-        d = self.grid.dim
-        pad_cfg = [(0, 0, 0)] + [
-            (lo, dst.shape[a + 1] - lo - src.shape[a + 1], 0) for a, lo in enumerate(lows)
-        ]
-        src_p = jax.lax.pad(src.astype(dst.dtype), jnp.zeros((), dst.dtype), pad_cfg)
-        in_box = None
-        for a, lo in enumerate(lows):
-            io_shape = (1,) * (a + 1) + (dst.shape[a + 1],) + (1,) * (d - a - 1)
-            io = jax.lax.broadcasted_iota(jnp.int32, io_shape, a + 1)
-            term = (io >= lo) & (io < lo + src.shape[a + 1])
-            in_box = term if in_box is None else (in_box & term)
-        if keep is not None:
-            keep_p = jax.lax.pad(keep, jnp.zeros((), jnp.bool_), pad_cfg)
-            in_box = in_box & ~keep_p
-        return jnp.where(in_box, src_p, dst)
-
-    def _fine_mask_ext(self, bms, mms):
-        """Packed int32 mask over the finest level's ring-extended box (ring
-        cells carry packed cell-type 30 = SFV/ghost keep-out)."""
-        from xlb_tpu.kernels.fused_step import pack_masks
-
-        packed = pack_masks(bms[0], mms[0])
-        return jnp.pad(packed, tuple((gi, gi) for gi in self._cts_ring), constant_values=self._RING_VAL)
-
-    def _cts_fine_pair(self, fs, bms, mms, omega_finest, parent_pc, ext_state=False, mask_ext=None, faces=None):
-        """Both finest-level sub-steps of a coarse step through ONE pass of
-        the fused collide-then-stream pair kernel: the ring-extended state
-        carries parent ghosts (mask ring = cell-type 254 -> the kernel's
-        keep-out), shared by both sub-steps (zeroth-order-in-time coupling,
-        as in the jnp tier).  Only the innermost ring layer is gathered.
-
-        With ``ext_state=True`` (the resident-window path, build_window)
-        ``fs[0]`` already IS the ring-extended array and stays extended on
-        return -- no per-step pad/crop round trip."""
-        pp = self.precision_policy
-        g = self._cts_ring
-        omega = pp.compute_dtype(compute_omega(omega_finest, 0))
-        if mask_ext is None:
-            mask_ext = self._fine_mask_ext(bms, mms)
-        if ext_state:
-            ext = fs[0]
-        else:
-            f0 = fs[0]
-            if self._cts_shifted:
-                # one-shot entry into the kernel's deviation form; the
-                # resident-window path (ext_state) keeps the state shifted
-                # across the whole window instead
-                f0 = (pp.cast_to_compute(f0) - self._w_col()).astype(pp.store_dtype)
-            ext = jnp.pad(f0, ((0, 0),) + tuple((gi, gi) for gi in g))
-        if faces is None:
-            faces = self._explode_ring_faces(parent_pc, 0, g, pp.store_dtype)
-        ext = self._overlay_faces(ext, faces)
-        out = self._cts(ext, mask_ext, omega)
-        ext, out2 = out if getattr(self, "_cts_has_coalesce", False) else (out, None)
-        fs = list(fs)
-        if ext_state:
-            fs[0] = ext
-        else:
-            interior = (slice(None),) + tuple(slice(gi, -gi) for gi in g)
-            f0 = ext[interior]
-            if self._cts_shifted:
-                # unshift to the COMPUTE dtype: re-quantizing f = g + w to
-                # 16 bits would erase deviations below ~0.4% of the weights
-                f0 = pp.cast_to_compute(f0) + self._w_col()
-            fs[0] = f0
-        return fs, out2
-
-    def _advance_mid_fused(self, level, fs, bms, mms, omega_finest, ghost_faces, ext_state, mask_ext, shifted_state, mask_mid=None, mid_ext=False):
-        """Both sub-steps of a fused MIDDLE level: per sub-step, the child
-        advances its own two sub-steps against lazily-collided faces (the
-        fused finest pair, a stacked fused middle, or the jnp ghost path
-        -- whichever applies at ``level - 1``), the coalesced average
-        merges into the ring-extended carry, and one kernel pass runs
-        collide + ghost-ring stream over the extended box.  The
-        parent-supplied ``ghost_faces`` (kernel form, at this level's ring
-        positions) are shared by both sub-steps and re-overlaid before each
-        (ring OUTPUTS of the pair=False kernel are garbage; the overlay is
-        six depth-1 face updates).  The pad -> (overlay, merge, kernel) x2
-        -> crop structure
-        costs ONE full-array pad and ONE crop per coarse step (the avg
-        merge touches only the refined-region slab); with ``mid_ext=True``
-        (the resident-window path, build_window) ``fs[level]`` is ALREADY
-        ring-extended in kernel storage form and even those two passes
-        disappear -- only the 6-face ring refresh remains.  ``mask_mid``
-        is the per-level list of hoisted ring-extended masks (or None)."""
-        pp = self.precision_policy
-        omega = pp.compute_dtype(compute_omega(omega_finest, level))
-        child = level - 1
-        g = self._mid_ring[level]
-        pads = ((0, 0),) + tuple((gi, gi) for gi in g)
-        interior = (slice(None),) + tuple(slice(gi, -gi) for gi in g)
-        mask_m = mask_mid[level] if mask_mid is not None else None
-        if mask_m is None:
-            mask_m = self._mid_mask_ext(level, bms, mms)
-        lvl_c = self.grid.levels[child]
-        slc_ext = (slice(None),) + tuple(
-            slice(o + gi, o + gi + e)
-            for (o, e, gi) in zip(lvl_c.origin_in_parent, lvl_c.extent_in_parent, g)
-        )
-        if mid_ext:
-            # resident-window carry: already extended, kernel storage form
-            ext_m = fs[level]
-        else:
-            if self._cts_shifted:
-                state_in = (
-                    fs[level]
-                    if shifted_state
-                    else (pp.cast_to_compute(fs[level]) - self._w_col()).astype(pp.store_dtype)
-                )
-            else:
-                state_in = fs[level] if fs[level].dtype == pp.store_dtype else pp.cast_to_store(fs[level])
-            ext_m = jnp.pad(state_in, pads)
-        persist = self._mid_persist[level]
-        if persist:
-            # ring_freeze kernels re-emit ring inputs: one overlay serves
-            # both sub-steps (they share the parent explosion anyway)
-            ext_m = self._overlay_faces(ext_m, ghost_faces)
-        for _ in range(2):
-            if not persist:
-                # refresh the innermost ring layer each sub-step (ring
-                # OUTPUTS of a freeze-less kernel are garbage -- edge
-                # pieces wrap modularly; interior pulls only read depth 1)
-                ext_m = self._overlay_faces(ext_m, ghost_faces)
-            f = pp.cast_to_compute(ext_m[interior])
-            if self._cts_shifted:
-                f = f + self._w_col()
-            if child == 0 and self._cts is not None:
-                child_faces = self._explode_faces_lazy(level, f, bms, mms, omega, child, self._cts_ring)
-                fs, out2 = self._cts_fine_pair(
-                    fs, bms, mms, omega_finest, None, ext_state=ext_state, mask_ext=mask_ext, faces=child_faces
-                )
-            elif self._cts_mid[child] is not None:
-                # stacked fused middles: the child's own sub-steps run
-                # in-kernel too, fed kernel-form faces at ITS ring
-                child_faces = self._explode_faces_lazy(level, f, bms, mms, omega, child, self._mid_ring[child])
-                fs = self._advance_mid_fused(
-                    child, fs, bms, mms, omega_finest, child_faces, ext_state, mask_ext, shifted_state,
-                    mask_mid, mid_ext=mid_ext,
-                )
-                out2 = None
-            else:
-                # jnp child: zeros ghost box overlaid with the innermost
-                # lazily-collided layer (same as _advance's deeper branch)
-                faces = self._explode_faces_lazy(level, f, bms, mms, omega, child, (1,) * self.grid.dim, for_kernel=False)
-                ghost_ext = jnp.zeros(
-                    (self.velocity_set.q,) + tuple(s + 2 for s in self.grid.levels[child].shape),
-                    pp.compute_dtype,
-                )
-                ghost_ext = self._overlay_faces(ghost_ext, faces)
-                fs = self._advance_fine_pair(
-                    child, fs, bms, mms, omega_finest, ghost_ext, None, ext_state, mask_ext, shifted_state,
-                    mask_mid=mask_mid, mid_ext=mid_ext,
-                )
-                out2 = None
-            if out2 is not None:
-                avg = self._avg_from_out2(out2)
-            else:
-                avg = self._child_avg(fs, child, ext_state, shifted_state, mid_ext=mid_ext)
-            # stored-form merge of the refined-region slab only; this level
-            # is BC-less (enforced by _build_cts_mid), so no solids to skip
-            if self._cts_shifted:
-                avg_s = (avg - self._w_col()).astype(pp.store_dtype)
-            else:
-                avg_s = avg.astype(pp.store_dtype)
-            ext_m = self._merge_box(
-                ext_m, avg_s, tuple(s.start for s in slc_ext[1:])
-            )
-            out = self._cts_mid[level](ext_m, mask_m, omega)
-            if self._mid_coalesce[level]:
-                ext_m, m_out2 = out
-            else:
-                ext_m, m_out2 = out, None
-        if m_out2 is not None:
-            # stash the LAST sub-step's 2x2-summed core for the parent's
-            # coalescence (consumed immediately in the same trace)
-            self._pending_mid_avg[level] = m_out2
-        fs = list(fs)
-        if mid_ext:
-            fs[level] = ext_m
-        else:
-            out = ext_m[interior]
-            if self._cts_shifted and not shifted_state:
-                out = pp.cast_to_compute(out) + self._w_col()
-            fs[level] = out
-        return fs
-
-    def _advance_fine_pair(self, level, fs, bms, mms, omega_finest, ghost_ext, probe=None, ext_state=False, mask_ext=None, shifted_state=False, ghost_faces=None, mask_mid=None, mid_ext=False):
-        pp = self.precision_policy
-        omega = pp.compute_dtype(compute_omega(omega_finest, level))
-        if ghost_faces is not None:
-            return self._advance_mid_fused(level, fs, bms, mms, omega_finest, ghost_faces, ext_state, mask_ext, shifted_state, mask_mid, mid_ext=mid_ext)
-        for _ in range(2):
-            f = pp.cast_to_compute(fs[level])
-            if shifted_state and level > 0:
-                f = f + self._w_col()
-            f_pc = self._collide_with_bcs(level, f, bms[level], mms[level], omega)
-            f_pc = self._freeze_solids(level, f, f_pc, bms)
-            if level > 0:
-                fs, out2 = self._advance_children(level, fs, bms, mms, omega_finest, f_pc, probe, ext_state, mask_ext, shifted_state, mask_mid, mid_ext=mid_ext)
-                if out2 is not None:
-                    avg = self._avg_from_out2(out2)
-                    lvl_c = self.grid.levels[level - 1]
-                    f_pc = self._merge_box(f_pc, avg, lvl_c.origin_in_parent)
-                else:
-                    f_pc = self._coalesce_from_avg(f_pc, self._child_avg(fs, level - 1, ext_state, shifted_state, mid_ext=mid_ext), level - 1)
-            f_ps = self._stream_with_ghosts(f_pc, ghost_ext, level)
-            f_ps = self._apply_bcs(ImplementationStep.STREAMING, level, f_pc, f_ps, bms[level], mms[level])
-            f_ps = self._freeze_solids(level, f, f_ps, bms)
-            if probe is not None:
-                probe(level, f_ps, f_pc)
-            fs = list(fs)
-            if shifted_state and level > 0:
-                f_ps = f_ps - self._w_col()
-            fs[level] = pp.cast_to_store(f_ps)
-        return fs
+    def _advance(self, level, fs, bms, mms, omega_finest, probe=None):
+        """Advance ``level`` by one of its own timesteps (recursively running
+        2 sub-steps of each finer level).  ``fs`` is the per-level state list
+        (current populations).  ``probe``, if given, is called as
+        ``probe(level, f_post_stream, f_post_collision)`` after each
+        sub-step (used by step_with_force)."""
+        return self._substep(level, fs, bms, mms, omega_finest, None, probe)
 
     def __call__(self, fs, bms, mms, omega_finest):
         """One coarsest-level timestep (= 2^(L-1) finest steps).  Returns the
         updated per-level population list."""
         return self._advance(self.grid.num_levels - 1, list(fs), bms, mms, omega_finest)
 
-    def _jnp_twin(self):
-        """A NAIVE-strategy twin sharing this stepper's grid/BCs/policy:
-        the pure-jnp oracle used as the backward path of differentiable
-        windows (pallas_call has no built-in VJP).  Shares the BC objects,
-        so no registry interaction; built lazily, no kernels."""
-        if getattr(self, "_jnp_twin_cache", None) is None:
-            from xlb_tpu.mres_perf_optimization_type import MresPerfOptimizationType
-
-            self._jnp_twin_cache = MultiresIncompressibleNavierStokesStepper(
-                self.grid,
-                boundary_conditions=self.boundary_conditions,
-                collision_type=self.collision_type,
-                mres_perf_opt=MresPerfOptimizationType.NAIVE_COLLIDE_STREAM,
-                velocity_set=self.velocity_set,
-                precision_policy=self.precision_policy,
-                compute_backend=self.compute_backend,
-            )
-        return self._jnp_twin_cache
-
-    def _build_diff_window(self, num_coarse_steps, fused_core):
-        """Differentiable window: the FUSED tier runs the forward pass, a
-        per-coarse-step-checkpointed jnp-tier scan supplies the backward
-        (the multires analogue of the single-res fused windows' custom_vjp;
-        the backward linearizes at the jnp tier's trajectory, which matches
-        the fused forward to f32 roundoff -- tests/models/test_autodiff.py
-        pins the gradient agreement).  f32 storage only: 16-bit windows
-        return compute-dtype states whose cotangent structure the jnp twin
-        cannot mirror."""
-        if jnp.dtype(self.precision_policy.store_dtype).itemsize < 4:
-            raise NotImplementedError(
-                "differentiable multires windows need FP32FP32 storage "
-                "(16-bit windows change the output dtype at the boundary)"
-            )
-        L = self.grid.num_levels
-        twin = self._jnp_twin()
-
-        def jnp_window(fs_t, bms, mms, omega):
-            body = jax.checkpoint(
-                lambda s, _: (tuple(twin._advance(L - 1, list(s), bms, mms, omega)), None)
-            )
-            out, _ = jax.lax.scan(body, tuple(fs_t), None, length=num_coarse_steps)
-            return out
-
-        if fused_core is None:
-            # no fused kernels: the jnp scan IS the window, natively
-            # differentiable (fori_loop would not reverse-differentiate)
-            return jax.jit(lambda fs, bms, mms, omega: list(jnp_window(tuple(fs), bms, mms, omega)))
-
-        @jax.custom_vjp
-        def run(fs, bms, mms, omega):
-            return tuple(fused_core(list(fs), bms, mms, omega))
-
-        def fwd(fs, bms, mms, omega):
-            return run(fs, bms, mms, omega), (fs, bms, mms, omega)
-
-        def bwd(res, ct):
-            fs, bms, mms, omega = res
-            _, vjp = jax.vjp(lambda fs_t, om: jnp_window(fs_t, bms, mms, om), tuple(fs), omega)
-            d_fs, d_om = vjp(tuple(ct))
-            zeros = lambda arrs: type(arrs)(np.zeros(a.shape, jax.dtypes.float0) for a in arrs)
-            return tuple(d_fs), zeros(tuple(bms)), zeros(tuple(mms)), d_om
-
-        run.defvjp(fwd, bwd)
-        return jax.jit(
-            lambda fs, bms, mms, omega: list(run(tuple(fs), tuple(bms), tuple(mms), omega))
-        )
-
     def build_window(self, num_coarse_steps, donate=True, differentiable=False):
         """A jitted ``num_coarse_steps``-coarse-step advance -- ONE dispatch.
+        Signature: ``run(fs, bms, mms, omega_finest) -> fs``.
 
-        When the fused finest pair is active, the finest level's state stays
-        ring-EXTENDED across the whole window: the per-step pad -> kernel ->
-        crop round trip of ``__call__`` (two full HBM copies of the largest
-        array per coarse step) reduces to one pad before and one crop after
-        the window, and the packed ext mask is built once.  Signature:
-        ``run(fs, bms, mms, omega_finest) -> fs``.
-
-        16-bit policies return the states UNSHIFTED in the compute dtype
-        (re-quantizing f = g + w would erase small deviations), so the
-        SECOND call sees f32 inputs and retraces once; steady state after
-        that."""
+        ``differentiable=True`` runs the steps as a per-coarse-step
+        checkpointed ``lax.scan`` (a ``fori_loop`` would not
+        reverse-differentiate)."""
         L = self.grid.num_levels
-        donate_argnums = (0,) if donate else ()
-
-        if self._cts is None or L < 2:
-            if differentiable:
-                return self._build_diff_window(num_coarse_steps, None)
-
-            def run_plain(fs, bms, mms, omega_finest):
-                return jax.lax.fori_loop(
-                    0,
-                    num_coarse_steps,
-                    lambda i, s: self._advance(L - 1, list(s), bms, mms, omega_finest),
-                    list(fs),
-                )
-
-            return jax.jit(run_plain, donate_argnums=donate_argnums)
-
-        g = self._cts_ring
-        pad_w = ((0, 0),) + tuple((gi, gi) for gi in g)
-        interior = (slice(None),) + tuple(slice(gi, -gi) for gi in g)
-        pp = self.precision_policy
-        shifted = self._cts_shifted
-
-        def run_ext(fs, bms, mms, omega_finest):
-            mask_ext = self._fine_mask_ext(bms, mms)
-            mask_coarse = (
-                self._coarse_mask_packed(bms, mms)
-                if self._cts_coarse is not None and self._coarse_bc_placement_ok()
-                else None
-            )
-            # hoist every fused middle level's ring-extended mask too (like
-            # mask_ext/mask_coarse): they are loop-invariant, and rebuilding
-            # one per coarse step costs a full-array pack+pad pass
-            mask_mid = [
-                self._mid_mask_ext(l, bms, mms) if self._cts_mid[l] is not None else None
-                for l in range(L)
-            ]
-            if not any(m is not None for m in mask_mid):
-                mask_mid = None
-            f0, coarse = fs[0], list(fs[1:])
-            if shifted:
-                # 16-bit windows keep EVERY level's state in deviation form
-                # g = f - w for the whole window (finest: the kernel's
-                # native storage; coarser: load-add / store-subtract around
-                # the jnp sub-steps) and unshift once at the boundary --
-                # into the compute dtype, since quantizing f = g + w back
-                # to 16 bits would erase small deviations.
-                wcol = self._w_col()
-                f0 = (pp.cast_to_compute(f0) - wcol).astype(pp.store_dtype)
-                coarse = [(pp.cast_to_compute(fv) - wcol).astype(pp.store_dtype) for fv in coarse]
-            # fused-middle levels' states stay ring-extended across the
-            # whole window too (mid_ext): their per-coarse-step pad/crop
-            # round trips (two full HBM copies per level per step) reduce
-            # to one pad before and one crop after, exactly like the finest
-            mid_ext = any(self._cts_mid[l] is not None for l in range(1, L))
-            mid_pads = [
-                ((0, 0),) + tuple((gi, gi) for gi in self._mid_ring[l])
-                if self._cts_mid[l] is not None
-                else None
-                for l in range(L)
-            ]
-            coarse = [
-                jnp.pad(pp.cast_to_store(fv) if fv.dtype != pp.store_dtype else fv, mid_pads[l + 1])
-                if mid_pads[l + 1] is not None
-                else fv
-                for l, fv in enumerate(coarse)
-            ]
-            state = [jnp.pad(f0, pad_w)] + coarse
-
-            def body(i, s):
-                return self._advance(
-                    L - 1, list(s), bms, mms, omega_finest, ext_state=True, mask_ext=mask_ext,
-                    shifted_state=shifted, mask_coarse=mask_coarse, mask_mid=mask_mid, mid_ext=mid_ext,
-                )
-
-            state = jax.lax.fori_loop(0, num_coarse_steps, body, state)
-            f0_out, coarse_out = state[0][interior], list(state[1:])
-            coarse_out = [
-                sv[(slice(None),) + tuple(slice(gi, -gi) for gi in self._mid_ring[l + 1])]
-                if mid_pads[l + 1] is not None
-                else sv
-                for l, sv in enumerate(coarse_out)
-            ]
-            if shifted:
-                wcol = self._w_col()
-                f0_out = pp.cast_to_compute(f0_out) + wcol
-                coarse_out = [pp.cast_to_compute(sv) + wcol for sv in coarse_out]
-            return [f0_out] + coarse_out
-
         if differentiable:
-            return self._build_diff_window(num_coarse_steps, run_ext)
-        return jax.jit(run_ext, donate_argnums=donate_argnums)
+
+            def run_scan(fs, bms, mms, omega):
+                body = jax.checkpoint(lambda s, _: (tuple(self._advance(L - 1, list(s), bms, mms, omega)), None))
+                out, _ = jax.lax.scan(body, tuple(fs), None, length=num_coarse_steps)
+                return list(out)
+
+            return jax.jit(run_scan)
+
+        def run_plain(fs, bms, mms, omega_finest):
+            return jax.lax.fori_loop(
+                0,
+                num_coarse_steps,
+                lambda i, s: self._advance(L - 1, list(s), bms, mms, omega_finest),
+                list(fs),
+            )
+
+        return jax.jit(run_plain, donate_argnums=(0,) if donate else ())
 
     def step_with_force(self, fs, bms, mms, omega_finest, momentum_transfer):
         """One coarsest-level timestep that also integrates the momentum-

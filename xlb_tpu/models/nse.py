@@ -7,12 +7,14 @@ advances one LBM step with the caller swapping buffers.
 
 Two implementation tiers:
 
-- JAX (default): the pure-jnp pull/push step below.  Everything between the
-  two buffer states is a single fused XLA computation; under GSPMD sharding
-  the rolls on sharded axes lower to ICI collective-permutes.
-- PALLAS: a fused collide-stream TPU kernel (xlb_tpu/kernels) that makes one
-  HBM pass per step -- the analogue of the reference's fused Warp kernel
-  (nse_stepper.py:427-466).
+- JAX (default): the pure-jnp pull/push step below, left to XLA; under
+  GSPMD sharding the rolls on sharded axes lower to collective-permutes.
+- PALLAS: a fused collide-stream kernel (xlb_tpu/kernels, Pallas's Triton
+  route) that makes one pass over device memory per step -- the analogue
+  of the reference's fused Warp kernel (nse_stepper.py:427-466).
+
+``stepper.active_tier`` names the tier that runs the hot loop: ``"jnp"`` or
+the kernel's launch description (``interpret`` marks interpret mode).
 """
 
 from functools import partial
@@ -89,10 +91,12 @@ class IncompressibleNavierStokesStepper(Stepper):
         self.macroscopic = Macroscopic(**common)
 
         self._pallas_step = None
+        self.active_tier = "jnp"
         if self.compute_backend == ComputeBackend.PALLAS:
             from xlb_tpu.kernels.fused_step import build_fused_step
 
             self._pallas_step = build_fused_step(self)
+            self.active_tier = self._pallas_step.active_tier
 
     # ------------------------------------------------------------------
     # Setup path (reference nse_stepper.py:99-225)
@@ -248,10 +252,13 @@ class IncompressibleNavierStokesStepper(Stepper):
             from xlb_tpu.kernels.fused_step import build_fused_window
 
             window = build_fused_window(self, num_steps)
+            self.active_tier = window.active_tier
 
             def _run_fused(f_0, f_1, bc_mask, missing_mask, omega, start_step=0):
                 return window(f_0, f_1, bc_mask, missing_mask, omega)
 
+            _run_fused.active_tier = window.active_tier
+            _run_fused.interpret = window.interpret
             return _run_fused
 
         @partial(jax.jit, static_argnames=(), donate_argnums=(0, 1) if donate else ())

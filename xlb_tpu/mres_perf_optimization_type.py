@@ -1,20 +1,10 @@
-"""Multires kernel-fusion strategy enum + CLI helper.
+"""Multires strategy enum + CLI helper.
 
-API parity with reference xlb/mres_perf_optimization_type.py:12-83.  The
-strategies select how much of the per-level work runs through the fused
-Pallas collide kernel (kernels/collide_only.py, one HBM round trip instead
-of ~q XLA passes for the moment-coupled collision):
-
-- NAIVE_COLLIDE_STREAM: pure jnp tier on every level.
-- FUSION_AT_FINEST: fused collide at the finest level (where most of the
-  sub-steps happen).
-- FUSION_AT_FINEST_SFV / _SFV_ALL: fused collide at every level.  The
-  reference's SFV fast paths skip sparse-voxel bookkeeping per cell class
-  (nse_multires_stepper.py:626-1110); the dense design has no such
-  bookkeeping, so both map to all-level fusion.
-
-Levels whose BC list needs non-elementwise collision-time work
-(aux-staging outflows) fall back to the jnp tier automatically.
+API parity with reference xlb/mres_perf_optimization_type.py:12-83.  Only
+NAIVE_COLLIDE_STREAM -- the jnp tier on every level -- is available.  The
+FUSION_AT_FINEST* members are kept so that reference scripts naming them
+fail with an actionable ValueError at stepper construction (their only
+effect was to select fused multires Pallas kernels, which were removed).
 """
 
 import argparse
@@ -41,8 +31,8 @@ class MresPerfOptimizationType(Enum):
         parser.add_argument(
             "--mres-perf-optimization",
             type=str,
-            default=MresPerfOptimizationType.FUSION_AT_FINEST.value,
+            default=MresPerfOptimizationType.NAIVE_COLLIDE_STREAM.value,
             choices=[m.value for m in MresPerfOptimizationType],
-            help="multires kernel-fusion strategy (dense TPU levels fuse automatically; kept for CLI parity)",
+            help="multires strategy (only naive_collide_stream is available; kept for CLI parity)",
         )
         return parser

@@ -1,7 +1,7 @@
 """Operator base class.
 
 The reference Operator (xlb/operator/operator.py:26-316) is a three-backend
-dispatch table with eager kernel construction.  In this TPU-native framework
+dispatch table with eager kernel construction.  In this framework
 an operator is simply a configured callable: ``__call__`` is a pure-jnp
 function of its array arguments, closed over static configuration (velocity
 set, precision policy).  That makes every operator directly jittable,

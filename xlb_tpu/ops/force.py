@@ -4,8 +4,7 @@
   (reference xlb/operator/force/exact_difference_force.py).
 - :class:`MomentumTransfer`: momentum-exchange drag/lift integration on a
   no-slip boundary (reference xlb/operator/force/momentum_transfer.py),
-  implemented as a masked tensordot + global reduction -- no atomics needed
-  on TPU.
+  implemented as a masked tensordot + global reduction -- no atomics.
 """
 
 from enum import Enum, auto

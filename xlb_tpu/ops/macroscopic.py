@@ -4,7 +4,7 @@ Parity with reference xlb/operator/macroscopic/{zero,first,second}_moment.py
 and macroscopic.py.  The reference's Warp kernels use Neumaier-compensated
 summation for f16 storage (zero_moment.py:22-40); here all reductions happen
 in the compute dtype (f32 by default) after the stepper upcasts, which meets
-the same accuracy bar on TPU without scalar loops.
+the same accuracy bar without scalar loops.
 """
 
 import numpy as np

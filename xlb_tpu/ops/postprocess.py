@@ -2,7 +2,7 @@
 
 Parity surface with reference xlb/operator/postprocess/{q_criterion,
 vorticity,grid_to_point}.py -- which are Warp-only there (q_criterion.py:
-139-143 raises on JAX).  Here they are pure-jnp, so they run on TPU, compose
+139-143 raises on JAX).  Here they are pure-jnp, so they run anywhere, compose
 under jit, shard under GSPMD, and differentiate.
 
 Derivatives use 2nd-order central differences with periodic wrap (matching

@@ -3,10 +3,10 @@
 LBM moment/projection contractions have tiny static coefficient matrices
 whose entries are mostly -1/0/+1 (lattice directions and their products).
 Lowering them to ``jnp.tensordot`` would (a) route a 19-wide contraction
-through the MXU at its default reduced precision and (b) block fusion with
-the surrounding elementwise math.  Unrolling them into adds/subtracts keeps
-everything on the VPU at full compute precision and lets XLA fuse the whole
-collide step into one HBM pass.
+through a matrix unit at its default reduced precision (TF32 on NVIDIA
+GPUs) and (b) block fusion with the surrounding elementwise math.
+Unrolling them into adds/subtracts keeps full compute precision and lets
+XLA fuse them with the collide step.
 """
 
 import numpy as np

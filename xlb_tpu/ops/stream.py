@@ -6,7 +6,7 @@ voxel x - c_l, i.e. ``out[l] = roll(f[l], +c_l)``.  Non-periodic physics is
 imposed afterwards by boundary conditions that overwrite shell voxels.
 
 Under GSPMD sharding, ``jnp.roll`` on a sharded axis lowers to an XLA
-collective-permute of the one-deep halo over ICI -- the same communication
+collective-permute of the one-deep halo between devices -- the same communication
 pattern the reference builds by hand with ``lax.ppermute``
 (distribute.py:21-46).  An explicit shard_map halo-exchange variant lives in
 ``xlb_tpu.parallel`` for when manual overlap control is needed.

@@ -1,4 +1,4 @@
-"""Multi-device distribution: shard_map wrapping + explicit ICI halo exchange.
+"""Multi-device distribution: shard_map wrapping + explicit halo exchange.
 
 Two distribution modes (SURVEY.md §5 "distributed communication backend"):
 
@@ -11,9 +11,8 @@ Two distribution modes (SURVEY.md §5 "distributed communication backend"):
    (distribute.py:10-79): run the operator per-shard with local periodic
    wrap, then patch the shard-edge populations with a ring exchange of
    direction-resolved halo slabs.  Generalized here from the reference's
-   1-D x decomposition to every sharded spatial axis, and to the fused
-   Pallas step.  Useful when manual control of communication/compute overlap
-   is needed.
+   1-D x decomposition to every sharded spatial axis.  Useful when manual
+   control of communication/compute overlap is needed.
 
 The exchanged quantity is one lattice-deep slabs of the populations whose
 direction crosses the shard boundary (c_axis = +-1), identical to the

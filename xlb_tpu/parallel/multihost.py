@@ -1,37 +1,33 @@
-"""Multi-host / multi-slice entry points.
+"""Multi-host entry points.
 
 The reference structures for "hundreds of GPUs" via MPI + NCCL
-(reference README.md:116, xlb/distribute/distribute.py); on TPU the
-native equivalent is ``jax.distributed`` over one controller per host,
-with XLA collectives riding ICI inside a slice and DCN between slices
+(reference README.md:116, xlb/distribute/distribute.py); the JAX
+equivalent is ``jax.distributed`` with one controller process per host,
+XLA collectives over NVLink inside a host and the network between hosts
 (SURVEY.md §5).  This module is the single entry point:
 
 1. :func:`init_distributed` -- call ONCE at program start on every
    process, before any array lands on a device.  It wraps
-   ``jax.distributed.initialize``; with TPU pods the coordinator /
-   process-count / process-id are auto-detected from the environment, so
-   a bare ``init_distributed()`` is enough.  On CPU/GPU clusters pass
-   them explicitly (or export ``JAX_COORDINATOR_ADDRESS``,
+   ``jax.distributed.initialize``; pass the coordinator address, process
+   count and process id explicitly (or export ``JAX_COORDINATOR_ADDRESS``,
    ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``).
 
-2. :func:`hybrid_mesh_devices` -- devices ordered for a DCN x ICI
-   factorized mesh (``mesh_utils.create_hybrid_device_mesh``), ready to
-   hand to ``grid_factory(shape, mesh_shape=..., devices=...)`` so that
-   the *outermost sharded spatial axis* spans slices over DCN and the
-   remaining axes stay inside a slice on ICI.  LBM halo exchanges are
-   nearest-neighbour, so only the two boundary planes of each slice ever
-   cross DCN -- exactly the layout the scaling playbook prescribes.
+2. :func:`hybrid_mesh_devices` -- devices ordered for an inter-host x
+   intra-host factorized mesh (``mesh_utils.create_hybrid_device_mesh``),
+   ready to hand to ``grid_factory(shape, mesh_shape=..., devices=...)``
+   so that the *outermost sharded spatial axis* spans hosts and the
+   remaining axes stay inside a host.  LBM halo exchanges are
+   nearest-neighbour, so only the two boundary planes of each host's
+   block ever cross the network.
 
 After ``init_distributed``, every ``jax.jit`` over a global
 ``jax.sharding.Mesh`` is automatically multi-process: each host passes
-its process-local shards, XLA inserts ICI/DCN collectives.  The jnp and
-fused-Pallas distributed paths (parallel/distribute.py,
-parallel/pallas_distribute.py) are built on ``shard_map`` over such a
-mesh and need no changes for multi-host.
+its process-local shards and XLA inserts the collectives.  The GSPMD jnp
+tier (parallel/distribute.py) needs no changes for multi-host.
 
 Tested 2-process x 4-virtual-CPU-devices in
 tests/parallel/test_multihost.py (jax.distributed supports multiprocess
-CPU); on real pods the same calls pick up the TPU coordinator.
+CPU).
 """
 
 from typing import Optional, Sequence, Tuple
@@ -72,8 +68,7 @@ def init_distributed(
     if process_id is None and os.environ.get("JAX_PROCESS_ID"):
         process_id = int(os.environ["JAX_PROCESS_ID"])
 
-    on_tpu_pod = any(k in os.environ for k in ("TPU_WORKER_HOSTNAMES", "CLOUD_TPU_TASK_ID", "MEGASCALE_COORDINATOR_ADDRESS"))
-    if coordinator_address is None and not on_tpu_pod:
+    if coordinator_address is None:
         return False  # single-process run; nothing to do
 
     jax.distributed.initialize(
@@ -92,20 +87,19 @@ def is_multiprocess() -> bool:
 
 def hybrid_mesh_devices(
     mesh_shape: Tuple[int, ...],
-    num_slices: Optional[int] = None,
+    num_hosts: Optional[int] = None,
 ) -> list:
     """Devices ordered so ``Grid(mesh_shape=mesh_shape, devices=...)``
-    puts the outermost sharded spatial axis across DCN (slices) and the
-    rest on ICI.
+    puts the outermost sharded spatial axis across hosts and the rest
+    inside each host.
 
     Parameters
     ----------
     mesh_shape : spatial device-mesh extents, e.g. ``(8, 4, 1)``; their
         product must equal the global device count.
-    num_slices : number of ICI islands (TPU slices / GPU hosts).  Default:
-        auto-detect from ``device.slice_index`` when present, else the
-        process count, else 1.  The *first* axis of ``mesh_shape`` whose
-        extent is divisible by ``num_slices`` carries the DCN dimension.
+    num_hosts : number of hosts (default: the process count, one process
+        per host).  The *first* axis of ``mesh_shape`` whose extent is
+        divisible by ``num_hosts`` spans the hosts.
 
     Returns a flat device list; pass it together with ``mesh_shape`` to
     :func:`xlb_tpu.grid.grid_factory`.
@@ -117,42 +111,25 @@ def hybrid_mesh_devices(
     if int(np.prod(mesh_shape)) != n:
         raise ValueError(f"mesh_shape {mesh_shape} must use all {n} global devices")
 
-    if num_slices is None:
-        slice_ids = {getattr(d, "slice_index", None) for d in devices}
-        if None not in slice_ids and len(slice_ids) > 1:
-            num_slices = len(slice_ids)
-        else:
-            num_slices = jax.process_count()
-    num_slices = max(1, int(num_slices))
-
-    if num_slices == 1:
+    num_hosts = max(1, int(jax.process_count() if num_hosts is None else num_hosts))
+    if num_hosts == 1:
         arr = mesh_utils.create_device_mesh(mesh_shape, devices=devices)
         return list(arr.flatten())
 
-    # Factor mesh_shape = dcn_shape * ici_shape: the first axis divisible by
-    # num_slices spans DCN (outermost spatial axis first -- LBM halos make
-    # that axis's exchanges nearest-neighbour planes, the cheapest DCN use).
+    # Factor mesh_shape = host_shape * local_shape: the first axis divisible
+    # by num_hosts spans the hosts (outermost spatial axis first -- LBM
+    # halos make that axis's exchanges nearest-neighbour planes).
     for axis, extent in enumerate(mesh_shape):
-        if extent % num_slices == 0 and extent >= num_slices:
-            dcn_shape = tuple(num_slices if i == axis else 1 for i in range(len(mesh_shape)))
-            ici_shape = tuple(
-                extent // num_slices if i == axis else e for i, e in enumerate(mesh_shape)
-            )
+        if extent % num_hosts == 0 and extent >= num_hosts:
+            host_shape = tuple(num_hosts if i == axis else 1 for i in range(len(mesh_shape)))
+            local_shape = tuple(extent // num_hosts if i == axis else e for i, e in enumerate(mesh_shape))
             break
     else:
         raise ValueError(
-            f"no axis of mesh_shape {mesh_shape} is divisible by num_slices={num_slices}; "
-            "make one spatial mesh extent a multiple of the slice count"
+            f"no axis of mesh_shape {mesh_shape} is divisible by num_hosts={num_hosts}; "
+            "make one spatial mesh extent a multiple of the host count"
         )
-
-    # Group devices into DCN granules by slice_index when it actually
-    # partitions them into num_slices islands (TPU multi-slice); otherwise
-    # by process (CPU/GPU clusters report slice_index 0 everywhere).
-    slice_vals = {getattr(d, "slice_index", None) for d in devices}
-    use_slice = None not in slice_vals and len(slice_vals) == num_slices
-    arr = mesh_utils.create_hybrid_device_mesh(
-        ici_shape, dcn_shape, devices=devices, process_is_granule=not use_slice
-    )
+    arr = mesh_utils.create_hybrid_device_mesh(local_shape, host_shape, devices=devices, process_is_granule=True)
     return list(arr.flatten())
 
 

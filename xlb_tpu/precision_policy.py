@@ -1,8 +1,8 @@
 """Precision system: scalar precisions and compute/store precision policies.
 
-Parity surface with reference xlb/precision_policy.py:13-120, redesigned for
-TPU: bfloat16 is a first-class storage and compute dtype (the TPU-native
-16-bit format), in addition to the reference's float16.
+Parity surface with reference xlb/precision_policy.py:13-120, with bfloat16
+as a first-class storage and compute dtype in addition to the reference's
+float16.
 """
 
 from enum import Enum, auto

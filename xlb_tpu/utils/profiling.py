@@ -1,24 +1,20 @@
 """Profiling and timing utilities.
 
-The TPU equivalents of the reference's NVIDIA-specific tracing hooks
-(SURVEY.md §5: NVTX ranges, wp.ScopedTimer): jax.profiler traces viewable
-in XProf/TensorBoard, named trace annotations, and a wall-clock timer that
-synchronizes correctly (plain block_until_ready is unreliable through some
-device transports; a scalar fetch is forced instead).
+The JAX equivalents of the reference's tracing hooks (SURVEY.md §5: NVTX
+ranges, wp.ScopedTimer): jax.profiler traces viewable in XProf/TensorBoard,
+named trace annotations, and a wall-clock timer that waits for the device
+with ``block_until_ready``.
 """
 
 import contextlib
 import time
 
 import jax
-import jax.numpy as jnp
 
 
 def sync(*arrays):
-    """Force full execution of pending work on the given arrays."""
-    for a in arrays:
-        if hasattr(a, "addressable_shards"):
-            float(jnp.sum(jnp.abs(a.ravel()[:8]).astype(jnp.float32)))
+    """Wait for pending work on the given arrays."""
+    jax.block_until_ready(arrays)
     return arrays[0] if len(arrays) == 1 else arrays
 
 

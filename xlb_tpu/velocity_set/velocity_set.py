@@ -1,7 +1,7 @@
 """Lattice velocity sets (DdQq stencils) and their derived constants.
 
-Parity surface with reference xlb/velocity_set/velocity_set.py:20-265, built
-TPU-first: every derived quantity is computed once in NumPy with vectorized
+Parity surface with reference xlb/velocity_set/velocity_set.py:20-265: every
+derived quantity is computed once in NumPy with vectorized
 code and exposed both as NumPy (for setup-time/masker code) and as jnp arrays
 (traced into XLA computations as constants).
 """
